@@ -8,10 +8,12 @@ Phases, each printing its own line:
 
   0. device: the card's name and power limit (nvidia-smi);
   1. build: nvcc compiles the port's CUDA sources into its build directory;
-  2. kernels: K1 (det pyramid), K2 (Haar / trace maps) and K3 (top-2
-     matcher) against their plain PyTorch versions at the slice's shapes
-     (the 8 bands of one 1024x2048 pair; 2048 x 2048 x 64 descriptor
-     banks), with times for both;
+  2. kernels: K1 (det pyramid) and K2 (Haar / trace maps), bit-identical
+     to their plain PyTorch versions, and K3 (top-2 matcher) within its
+     tolerance, at the slice's shapes (the 8 bands of one 1024x2048 pair;
+     2048 x 2048 x 64 descriptor banks), with times for each kernel, its
+     plain version and, for K3, one library call (cdist + topk), and each
+     kernel's bound (bytes or fp32 operations over the H100's peaks);
   3. slice: run_two_view(..., frontend="band") on 4 synthetic 1024x2048
      rotation pairs under the 2K bench config (compat BA), with the
      kernels' launch counts and the bench's 2K compat gates;
@@ -30,6 +32,7 @@ import sys
 import numpy as np
 import torch
 
+from spherical_bundle_adjuster_tpu_torch import kernel_times
 from spherical_bundle_adjuster_tpu_torch.models import frontend, twoview
 from spherical_bundle_adjuster_tpu_torch.ops import cuda_match, cuda_surf, integral, kernels
 from spherical_bundle_adjuster_tpu_torch.utils import synthetic
@@ -70,18 +73,10 @@ def log(phase, **kv):
     print(json.dumps({"phase": phase, **kv}), flush=True)
 
 
-def time_ms(fn, iters=10, warmup=2):
-    """Mean device time of fn() in ms (CUDA events around `iters` calls)."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+def time_ms(fn, iters=10):
+    """Mean device time of fn() in ms: CUDA events around back-to-back
+    calls queued behind a GPU spin (kernel_times.device_ms)."""
+    return kernel_times.device_ms(fn, iters)[0]
 
 
 def rot_err_deg_host(rot_aa, R_gt):
@@ -138,6 +133,38 @@ def phase_build():
     log("build", seconds=kernels.build_seconds, library=lib.name)
 
 
+# H100 SXM peaks (NVIDIA's data sheet, dense, at 700 W): HBM bytes/s and
+# fp32 FLOP/s outside the tensor cores.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FP32_PER_S = 67e12
+# fp32 operations per value: K1 10 boxes x 3 + 10 weights + 7 sums + 4 for
+# the det; K2 14 boxes x 3 + hx, hy 2 + the trace's 2 weights and 5 sums.
+K1_OPS_PER_VALID = 51
+K2_OPS_PER_VALUE = 51
+
+
+def bound(n_bytes, n_ops):
+    """The least time in ms for moving n_bytes and doing n_ops fp32
+    operations on the card, and which of the two sets it."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, n_ops / PEAK_FP32_PER_S
+    return dict(bound_ms=1e3 * max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def max_abs_err(got, want):
+    """Largest |got - want| over the values finite in both; inf where the
+    two differ in which values are finite."""
+    got, want = got.float(), want.float()
+    fin = torch.isfinite(want)
+    if not torch.equal(fin, torch.isfinite(got)):
+        return float("inf")
+    return (got[fin] - want[fin]).abs().max().item() if bool(fin.any()) else 0.0
+
+
 def phase_kernels(dev):
     """Each kernel against its plain version at the slice's shapes."""
     left, right, _ = make_pair(0, *SIZE_2K, dev)
@@ -145,42 +172,40 @@ def phase_kernels(dev):
     ii = integral.integral_image(bands)  # (8, 257, 2049)
     scfg = CFG_2K.surf
     rows = []
+    no_library = dict(library_ms=None, library="no single PyTorch call computes it")
 
-    # K1: all octaves of one pair's pyramid
-    errs = []
-    for o in range(scfg.n_octaves):
-        k = cuda_surf.det_octave_cuda(ii, o, scfg)
-        torch.cuda.synchronize()
-        p = cuda_surf.det_octave_plain(ii, o, scfg)
-        fin = torch.isfinite(p)
-        require(torch.equal(fin, torch.isfinite(k)), f"K1 octave {o}: finite masks differ")
-        require(torch.allclose(k[fin], p[fin], atol=2.0, rtol=1e-4), f"K1 octave {o}: values differ")
-        errs.append((k[fin] - p[fin]).abs().max().item())
+    # K1: all octaves of one pair's pyramid, one launch
+    got = cuda_surf.det_pyramid_cuda(ii, scfg)
+    torch.cuda.synchronize()
+    n_bytes, n_ops, err = nbytes(ii), 0, 0.0
+    for o, (k, p) in enumerate(zip(got, cuda_surf.det_pyramid_plain(ii, scfg))):
+        require(torch.equal(k, p), f"K1 octave {o}: not bit-identical to its plain version")
+        err = max(err, max_abs_err(k, p))
+        n_bytes += nbytes(k)
+        n_ops += K1_OPS_PER_VALID * int(torch.isfinite(p).sum())
     rows.append(dict(
         name="det_pyramid", route="cuda", source="spherical_bundle_adjuster_tpu_torch/csrc/surf_maps.cu",
-        replaces="spherical_bundle_adjuster_tpu/ops/pallas_surf.py:95", max_abs_err=max(errs),
-        ms=time_ms(lambda: [cuda_surf.det_octave_cuda(ii, o, scfg) for o in range(scfg.n_octaves)]),
-        plain_ms=time_ms(lambda: [cuda_surf.det_octave_plain(ii, o, scfg) for o in range(scfg.n_octaves)]),
-        tolerance="identical finite mask; atol 2.0, rtol 1e-4",
+        replaces="spherical_bundle_adjuster_tpu/ops/pallas_surf.py:95", max_abs_err=err,
+        ms=time_ms(lambda: cuda_surf.det_pyramid_cuda(ii, scfg)),
+        plain_ms=time_ms(lambda: cuda_surf.det_pyramid_plain(ii, scfg)),
+        **bound(n_bytes, n_ops), **no_library,
+        tolerance="bit-identical (torch.equal, -inf mask included), every octave",
     ))
 
     # K2
     hx, hy, tr = cuda_surf.haar_trace_maps_cuda(ii, scfg)
     torch.cuda.synchronize()
     px, py, pt = cuda_surf.haar_trace_maps_plain(ii, scfg)
-    for a, b, n in ((hx, px, "hx"), (hy, py, "hy")):
-        require(torch.allclose(a.float(), b.float(), atol=4.0, rtol=2e-2), f"K2 {n} differs")
-    flips = (tr != pt).float().mean().item()
-    require(flips < 0.01, f"K2 trace signs flipped: {flips}")
+    for a, b, n in ((hx, px, "hx"), (hy, py, "hy"), (tr, pt, "trace sign")):
+        require(torch.equal(a, b), f"K2 {n}: not bit-identical to its plain version")
     rows.append(dict(
         name="haar_trace_maps", route="cuda", source="spherical_bundle_adjuster_tpu_torch/csrc/surf_maps.cu",
         replaces="spherical_bundle_adjuster_tpu/ops/pallas_surf.py:145",
-        max_abs_err=max((hx.float() - px.float()).abs().max().item(),
-                        (hy.float() - py.float()).abs().max().item()),
-        trace_flip_frac=flips,
+        max_abs_err=max(max_abs_err(a, b) for a, b in ((hx, px), (hy, py), (tr, pt))),
         ms=time_ms(lambda: cuda_surf.haar_trace_maps_cuda(ii, scfg)),
         plain_ms=time_ms(lambda: cuda_surf.haar_trace_maps_plain(ii, scfg)),
-        tolerance="hx, hy atol 4.0 rtol 2e-2; < 1% trace signs flipped",
+        **bound(nbytes(ii, hx, hy, tr), K2_OPS_PER_VALUE * hx.numel()), **no_library,
+        tolerance="bit-identical (torch.equal) hx, hy and trace sign",
     ))
     del hx, hy, tr, px, py, pt
 
@@ -197,12 +222,18 @@ def phase_kernels(dev):
     inv, _ = cuda_match.top2_distances_cuda(d1, d2, torch.zeros_like(v2))
     torch.cuda.synchronize()
     require(bool(torch.isinf(inv).all()), "K3 all-invalid bank did not give inf")
+
+    def library_top2():  # the yardstick only: the port never calls it
+        return torch.topk(torch.cdist(d1, d2).masked_fill_(~v2, torch.inf), 2, largest=False)
+
     rows.append(dict(
         name="top2_distances", route="cuda", source="spherical_bundle_adjuster_tpu_torch/csrc/match_top2.cu",
         replaces="spherical_bundle_adjuster_tpu/ops/pallas_match.py:89",
         max_abs_err=(dist - pdist).abs().max().item(),
         ms=time_ms(lambda: cuda_match.top2_distances_cuda(d1, d2, v2)),
         plain_ms=time_ms(lambda: cuda_match.top2_distances_plain(d1, d2, v2)),
+        **bound(nbytes(d1, d2, v2, dist, idx), 2 * d1.shape[0] * d2.shape[0] * d1.shape[1]),
+        library_ms=time_ms(library_top2), library="torch.cdist + torch.topk(2, largest=False)",
         tolerance="identical indices; distance atol 2e-3; all-invalid gives inf",
     ))
     for r in rows:
@@ -274,8 +305,9 @@ def main():
     rows = phase_kernels(dev)
     counts = phase_slice(dev)
     phase_512(dev)
-    for r, sym in zip(rows, ("sba_det_octave", "sba_haar_trace", "sba_top2")):
+    for r, sym in zip(rows, ("sba_det_pyramid", "sba_haar_trace", "sba_top2")):
         r["launches"] = counts[sym]
+        r["launches_per_pair"] = counts[sym] / N_PAIRS_2K
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,9 +3,10 @@ spherical_bundle_adjuster_tpu, for one NVIDIA H100 (sm_90a).
 
 The JAX package beside it is the reference; this package mirrors its
 layout (core/ ops/ models/ solver/ utils/) and its module and function
-names. It imports torch and never jax. The configuration dataclasses are
-shared with the reference by import (utils/config.py), so both packages
-read one set of knobs.
+names. It imports torch and nothing of jax or of the reference package.
+Its configuration dataclasses (utils/config.py) are its own copy of the
+reference's, with the same field names and defaults less five TPU-only
+knobs; `config.from_reference` converts a reference config.
 
 The three Pallas TPU kernels of the reference become hand-written CUDA
 C++ kernels under csrc/ (ops/cuda_surf.py, ops/cuda_match.py), built with

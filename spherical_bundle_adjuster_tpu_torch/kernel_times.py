@@ -1,0 +1,129 @@
+"""Time the port's kernels K1, K2 and K3 on the card at the 2K slice's
+shapes, for this tree or another checkout of the port.
+
+    python spherical_bundle_adjuster_tpu_torch/kernel_times.py [--tree DIR] [--label NAME]
+    python spherical_bundle_adjuster_tpu_torch/kernel_times.py --stage-bytes 73728,114688
+    python spherical_bundle_adjuster_tpu_torch/kernel_times.py --ablate
+
+`--tree` imports spherical_bundle_adjuster_tpu_torch from DIR instead of
+this checkout (for example an older commit unpacked with `git archive`),
+so two versions of the kernels are timed by the same code. Each line of
+output is one JSON object: the kernel, its device time per call
+(`device_ms`: CUDA events around back-to-back calls queued behind a GPU
+spin, so host overhead does not count), its wall time per call with the
+host in the loop (`wall_ms`), and the card's name and power limit. Needs
+one NVIDIA GPU.
+
+For this tree's K1 and K2 only: `--stage-bytes` times them under other
+shared-memory staging budgets (ops/cuda_surf.STAGE_BYTES), and
+`--ablate` also times the kernels built without their shared-memory
+copies (SBA_NO_STAGE) and without their compute (SBA_NO_COMPUTE), which
+splits their time between staging and compute. Those lines carry the
+budget and the variant.
+"""
+
+from __future__ import annotations
+
+import time
+
+import torch
+
+SPIN_PROBE_CYCLES = 10**7
+
+
+def device_ms(fn, iters=20, warmup=3):
+    """Mean device time of fn() in ms, and its mean wall time per call.
+
+    The calls are queued behind torch.cuda._sleep, sized to outlast the
+    host's queueing, so the events between them time the kernels back to
+    back rather than the host's launch rate."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / iters
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(SPIN_PROBE_CYCLES)
+    end.record()
+    torch.cuda.synchronize()
+    cycles_per_ms = SPIN_PROBE_CYCLES / start.elapsed_time(end)
+    torch.cuda._sleep(int(cycles_per_ms * (2.0 * wall * iters + 5.0)))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters, wall
+
+
+def main():
+    import argparse
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--tree", default=str(Path(__file__).resolve().parent.parent))
+    ap.add_argument("--label", default="this tree")
+    ap.add_argument("--stage-bytes", default="", help="comma-separated staging budgets")
+    ap.add_argument("--ablate", action="store_true")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("kernel_times: no CUDA device")
+    sys.path.insert(0, str(Path(args.tree).resolve()))
+    from spherical_bundle_adjuster_tpu_torch.ops import cuda_match, cuda_surf, integral
+    from spherical_bundle_adjuster_tpu_torch.utils.config import SurfConfig
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(dev).manual_seed(0)
+    # the 8 bands of one 1024x2048 pair (4 pitches x 2 views), 256 x 2048
+    ii = integral.integral_image(torch.rand(8, 256, 2048, device=dev, generator=g) * 255)
+    d1 = torch.nn.functional.normalize(torch.randn(2048, 64, device=dev, generator=g), dim=-1)
+    d2 = torch.nn.functional.normalize(torch.randn(2048, 64, device=dev, generator=g), dim=-1)
+    v2 = torch.rand(2048, device=dev, generator=g) > 0.1
+    cfg = SurfConfig(n_octaves=4)
+    if hasattr(cuda_surf, "det_pyramid_cuda"):  # one launch for every octave
+        runs = {"det_pyramid": lambda: cuda_surf.det_pyramid_cuda(ii, cfg)}
+    else:  # one launch per octave (the first version of the kernels)
+        runs = {f"det_octave_{o}": (lambda o=o: cuda_surf.det_octave_cuda(ii, o, cfg))
+                for o in range(cfg.n_octaves)}
+        runs["det_pyramid"] = lambda: [cuda_surf.det_octave_cuda(ii, o, cfg)
+                                       for o in range(cfg.n_octaves)]
+    runs["haar_trace_maps"] = lambda: cuda_surf.haar_trace_maps_cuda(ii, cfg)
+    runs["top2_distances"] = lambda: cuda_match.top2_distances_cuda(d1, d2, v2)
+    for name, fn in runs.items():
+        dms, wms = device_ms(fn)
+        print(json.dumps({"tree": args.label, "kernel": name, "device_ms": dms, "wall_ms": wms,
+                          "card": card}), flush=True)
+    if not (args.stage_bytes or args.ablate):
+        return
+    from spherical_bundle_adjuster_tpu_torch.ops import kernels
+
+    budgets = [int(b) for b in args.stage_bytes.split(",") if b] or [cuda_surf.STAGE_BYTES]
+    variants = {"full": ()}
+    if args.ablate:
+        variants.update(no_stage=("SBA_NO_STAGE",), no_compute=("SBA_NO_COMPUTE",))
+    for variant, defines in variants.items():
+        kernels.library(defines)
+        for budget in budgets:
+            cuda_surf.STAGE_BYTES = budget
+            cuda_surf._det_plan.cache_clear()
+            cuda_surf._haar_plan.cache_clear()
+            for name in ("det_pyramid", "haar_trace_maps"):
+                dms, wms = device_ms(runs[name])
+                print(json.dumps({"tree": args.label, "kernel": name, "variant": variant,
+                                  "stage_bytes": budget, "device_ms": dms, "wall_ms": wms,
+                                  "card": card}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -23,13 +23,34 @@ def rgb_to_gray(image):
     return img[..., 0] * 0.299 + img[..., 1] * 0.587 + img[..., 2] * 0.114
 
 
+# Row stride of an integral image in floats: a multiple of 4, so that every
+# row starts 16-byte aligned (the CUDA kernels stage rows with 16-byte
+# copies).
+ROW_ALIGN = 4
+
+
 def integral_image(gray):
     """(..., H, W) -> (..., H+1, W+1) exclusive-prefix integral image.
 
-    ii[y, x] = sum of gray[:y, :x]; ii[0, :] = ii[:, 0] = 0.
+    ii[y, x] = sum of gray[:y, :x]; ii[0, :] = ii[:, 0] = 0. The result is
+    a view whose rows are padded in memory to a multiple of ROW_ALIGN
+    floats (is_row_aligned).
     """
     ii = torch.cumsum(torch.cumsum(gray.to(torch.float32), dim=-2), dim=-1)
-    return F.pad(ii, (1, 0, 1, 0))
+    *lead, h, w = ii.shape
+    ld = -(-(w + 1) // ROW_ALIGN) * ROW_ALIGN
+    out = ii.new_zeros((*lead, h + 1, ld))
+    out[..., 1:, 1 : w + 1] = ii
+    return out[..., : w + 1]
+
+
+def is_row_aligned(ii) -> bool:
+    """Whether (B, H+1, W+1) ii has integral_image's layout: unit column
+    stride, a row stride that is a multiple of ROW_ALIGN, bands one after
+    the other, and a 16-byte aligned start."""
+    ld = ii.stride(1)
+    return (ii.stride(2) == 1 and ld >= ii.shape[2] and ld % ROW_ALIGN == 0
+            and ii.stride(0) == ii.shape[1] * ld and ii.data_ptr() % 16 == 0)
 
 
 def edge_pad(ii, pad):

@@ -7,10 +7,11 @@ the build short) and loaded with ctypes. The library lands in
 sources, so an edited source can never load a stale binary. Nothing is
 built or loaded when this module is imported: the first launch does it.
 
-Every C entry point takes device pointers as c_void_p, then the device
-index and PyTorch's current CUDA stream on it, selects that device,
-launches on that stream, and returns cudaGetLastError(); the caller
-raises on anything but 0.
+Every C entry point takes pointers as c_void_p (device memory, or host
+memory it reads before it launches: host_ptr), then the device index and
+PyTorch's current CUDA stream on it, selects that device, launches on
+that stream, and returns cudaGetLastError(); the caller raises on
+anything but 0.
 """
 
 from __future__ import annotations
@@ -33,8 +34,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C signatures: name -> argtypes (restype is int, the cudaError_t).
 SIGNATURES = {
-    "sba_det_octave": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    "sba_haar_trace": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "sba_det_pyramid": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "sba_haar_trace": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "sba_top2": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
@@ -57,22 +58,25 @@ def _nvcc():
     return str(nvcc)
 
 
-def build(verbose: bool = False) -> Path:
-    """Compile csrc/*.cu into build/libsba_kernels_<hash>.so (if absent)."""
+def build(verbose: bool = False, defines=()) -> Path:
+    """Compile csrc/*.cu into build/libsba_kernels_<hash>.so (if absent).
+    `defines`: macros to set, for the measurement variants of
+    csrc/surf_maps.cu (kernel_times.py --ablate)."""
     global build_seconds
     srcs = _sources()
+    flags = [*ARCH_FLAGS, *(f"-D{d}" for d in defines)]
     digest = hashlib.sha256()
     for s in srcs:
         digest.update(s.name.encode())
         digest.update(s.read_bytes())
-    digest.update(" ".join(ARCH_FLAGS).encode())
+    digest.update(" ".join(flags).encode())
     out = BUILD_DIR / f"libsba_kernels_{digest.hexdigest()[:16]}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [
-        _nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+        _nvcc(), *flags, "-std=c++17", "-O3", "-shared",
         "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp),
         *[str(s) for s in srcs if s.suffix == ".cu"],
     ]
@@ -89,11 +93,12 @@ def build(verbose: bool = False) -> Path:
     return out
 
 
-def library():
-    """The loaded kernel library (built on first call)."""
+def library(defines=None):
+    """The loaded kernel library (built on first call). Given `defines`,
+    build and load that variant in place of the loaded library."""
     global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
+    if _lib is None or defines is not None:
+        lib = ctypes.CDLL(str(build(defines=defines or ())))
         for name, argtypes in SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
@@ -123,6 +128,14 @@ class Kernel:
 
 def ptr(t: torch.Tensor):
     return ctypes.c_void_p(t.data_ptr())
+
+
+def host_ptr(a):
+    """A C-contiguous numpy array's data, for an argument the C side reads
+    on the host before it launches."""
+    if not a.flags.c_contiguous:
+        raise ValueError("expected a C-contiguous array")
+    return a.ctypes.data_as(ctypes.c_void_p)
 
 
 def check(t: torch.Tensor, name: str, dtype, device, shape=None):

@@ -5,7 +5,7 @@ takes a leading batch of B bands (the JAX package vmapped a single-band
 function over them):
 
   * integral image, then the det-of-Hessian pyramid per octave on the
-    octave's stride grid — K1 (ops/cuda_surf.det_octave)
+    octave's stride grid — K1 (ops/cuda_surf.det_pyramid)
   * 3x3x3 non-max suppression, global exact top-K over all octaves with a
     lossless 2x2 block-argmax pre-reduction, 27-tap subpixel refine
   * Haar and trace-sign maps — K2 (ops/cuda_surf.haar_trace_maps) — then
@@ -17,8 +17,8 @@ selected with an exact, stable top-K (`torch.sort(stable=True)`, the
 lower index first on ties, as lax.top_k); the gray band is rounded to
 integers before descriptor sampling (the reference's MXU gather path,
 which the bench gates were calibrated on); the dense maps always come
-from the kernels on CUDA. `gather_mode`, `mxu_gather_chunk`, `topk_mode`,
-`topk_recall` and `det_mode` are ignored.
+from the kernels on CUDA. The port's SurfConfig has no `gather_mode`,
+`mxu_gather_chunk`, `topk_mode`, `topk_recall` or `det_mode`.
 """
 
 from __future__ import annotations
@@ -64,12 +64,6 @@ def _check_supported(cfg: SurfConfig):
         raise NotImplementedError(
             "laplacian_mode='gather' is not ported yet (ROADMAP queue 1)"
         )
-
-
-def _det_maps_per_octave(ii, cfg: SurfConfig):
-    """List over octaves of (B, n_octave_layers + 2, oh, ow) det maps on
-    the octave's stride grid, -inf outside the valid border (K1)."""
-    return [cuda_surf.det_octave(ii, o, cfg) for o in range(cfg.n_octaves)]
 
 
 def _nms_candidates(det_list, cfg: SurfConfig):
@@ -337,7 +331,7 @@ def detect(gray, cfg: SurfConfig = SurfConfig()):
     _check_supported(cfg)
     gray = gray.to(torch.float32)
     ii = integral.integral_image(gray)
-    det_list = _det_maps_per_octave(ii, cfg)
+    det_list = cuda_surf.det_pyramid(ii, cfg)  # per octave, -inf outside the border
     cand_list = _nms_candidates(det_list, cfg)
     kp = _refine_and_pack(det_list, cand_list, cfg)
     hx_maps, hy_maps, trace_maps = cuda_surf.haar_trace_maps(ii, cfg)

@@ -1,24 +1,162 @@
-"""Configuration: the reference's frozen dataclasses, shared by import.
+"""Configuration: the port's own frozen dataclasses.
 
-spherical_bundle_adjuster_tpu.utils.config is pure dataclasses and imports
-no jax (and the reference package's __init__ imports only that module),
-so both packages read one set of knobs and a config built for one is
-valid for the other.
+Field names and defaults are those of the reference's
+spherical_bundle_adjuster_tpu/utils/config.py, which the port does not
+import. Left out are the reference's five TPU-only SurfConfig knobs,
+`gather_mode`, `mxu_gather_chunk`, `topk_mode`, `topk_recall` and
+`det_mode`: the port always rounds the gray band before descriptor
+sampling (the reference's MXU gather path, which the bench gates were
+calibrated on), always selects keypoints with exact top-K, and always runs
+its CUDA kernels for CUDA tensors.
 
-The port ignores the TPU-only knobs of SurfConfig: `gather_mode`,
-`mxu_gather_chunk`, `topk_mode`, `topk_recall` and `det_mode`. It always
-rounds the gray band before descriptor sampling (the reference's MXU
-gather path, which the bench gates were calibrated on), always selects
-keypoints with exact top-K, and always runs its CUDA kernels for CUDA
-tensors.
+`from_reference` carries a config built for the reference across: it
+reads the reference's attributes by name and drops the five knobs.
 """
 
-from spherical_bundle_adjuster_tpu.utils.config import (  # noqa: F401
-    DENSE_BAND_PITCHES,
-    BaConfig,
-    FrontendConfig,
-    MatchConfig,
-    PipelineConfig,
-    RansacConfig,
-    SurfConfig,
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class SurfConfig:
+    """SURF detector/descriptor (OpenCV's defaults)."""
+
+    hessian_threshold: float = 100.0
+    n_octaves: int = 4
+    n_octave_layers: int = 3
+    max_keypoints: int = 512      # static per-image keypoint capacity
+    upright: bool = False         # True skips orientation assignment (U-SURF)
+    descriptor_dim: int = 64
+    subpixel_refine: bool = True
+    descriptor_interp: str = "nearest"  # "nearest" (OpenCV-style) | "bilinear"
+    # "dense": per-layer dense trace-sign maps, one gather per keypoint;
+    # "gather": corner reads per keypoint at the refined size.
+    laplacian_mode: str = "dense"
+
+
+@dataclasses.dataclass(frozen=True)
+class MatchConfig:
+    """Descriptor matching: exact top-2 + Lowe ratio."""
+
+    ratio_thresh: float = 0.3
+    max_matches: int = 512        # static match capacity
+    mutual_check: bool = False    # the reference tool matches one way only
+
+
+# The 22.5-deg band ladder, which keeps every latitude within 11.25 deg of
+# a band center (no intermediate-pitch match cliff); 2x front-end cost.
+DENSE_BAND_PITCHES: Tuple[float, ...] = (
+    67.5, 45.0, 22.5, 0.0, -22.5, -45.0, -67.5, -90.0
 )
+
+
+@dataclasses.dataclass(frozen=True)
+class FrontendConfig:
+    """Band-rotation front-end."""
+
+    band_pitches_deg: Tuple[float, ...] = (45.0, 0.0, -45.0, -90.0)
+    # Band rows [3H/8, 5H/8) of the pitch-rotated sphere, as fractions of H.
+    band_row_start_frac: float = 3.0 / 8.0
+    band_height_frac: float = 1.0 / 4.0
+    cube_size: int = 600          # cubemap front-end
+    resample_mode: str = "floor"  # reference parity; "bilinear" for quality
+    # "parity" (band_pitches_deg), "dense" (DENSE_BAND_PITCHES) or "auto"
+    # (parity, then dense when it finds fewer than auto_min_matches).
+    band_ladder: str = "auto"
+    auto_min_matches: int = 16
+
+
+@dataclasses.dataclass(frozen=True)
+class RansacConfig:
+    """Consensus initial guess."""
+
+    num_trials: int = 80
+    sample_fraction: float = 0.25
+    max_euler_valid: float = 1.57  # validity bound, rad
+    trim_lo: float = 0.2           # trimmed-mean consensus window
+    trim_hi: float = 0.8
+    seed: int = 0
+    scoring: str = "trimmed_mode"  # | "inlier_count"
+    inlier_thresh_deg: float = 1.5
+    cheirality: bool = True        # resolve t's sign by a positive-depth vote
+    rotation_hypothesis: bool = True  # multi-start only: a Procrustes start
+
+
+@dataclasses.dataclass(frozen=True)
+class BaConfig:
+    """Bundle adjustment solver."""
+
+    max_iterations: int = 50      # per BCD stage
+    function_tolerance: float = 1e-6
+    huber_delta: float = 1.0
+    barrier_lambda: float = 1.0   # d-stage depth barrier lambda*exp(-c*d)
+    barrier_c: float = 1.0
+    d_lower_bound: float = 0.0
+    init_depth: float = 1.0
+    lm_lambda_init: float = 1e-4
+    lm_lambda_up: float = 4.0
+    lm_lambda_down: float = 2.0
+    reference_compat: bool = True  # the reference tool's quirks, for pose parity
+    bcd_rounds: int = 1
+    joint_refine: bool = False
+    outlier_reject: bool = False
+    outlier_thresh_deg: float = 1.5
+    outlier_min_keep: int = 9
+    outlier_rounds: int = 2
+    multi_start: int = 0
+    rot_dominant_select_deg: float = 0.75
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelineConfig:
+    surf: SurfConfig = SurfConfig()
+    match: MatchConfig = MatchConfig()
+    frontend: FrontendConfig = FrontendConfig()
+    ransac: RansacConfig = RansacConfig()
+    ba: BaConfig = BaConfig()
+    # Evaluation: inlier threshold 2 deg and 10% trim for the mean error.
+    eval_inlier_thresh_rad: float = 2.0 / 180.0 * math.pi
+    eval_trim_frac: float = 0.1
+    dtype: str = "float32"
+
+    def quality(self) -> "PipelineConfig":
+        """Quality preset: the dense band ladder and inlier-count RANSAC
+        scoring, for scenes whose relative pitch is unconstrained."""
+        return dataclasses.replace(
+            self,
+            frontend=dataclasses.replace(self.frontend, band_ladder="dense"),
+            ransac=dataclasses.replace(self.ransac, scoring="inlier_count"),
+        )
+
+    def parity(self) -> "PipelineConfig":
+        """Reference-parity preset: the reference's 4-pitch ladder with no
+        dense fallback."""
+        return dataclasses.replace(
+            self,
+            frontend=dataclasses.replace(self.frontend, band_ladder="parity"),
+        )
+
+
+_SUB_CONFIGS = {
+    "surf": SurfConfig, "match": MatchConfig, "frontend": FrontendConfig,
+    "ransac": RansacConfig, "ba": BaConfig,
+}
+_BY_NAME = {c.__name__: c for c in (*_SUB_CONFIGS.values(), PipelineConfig)}
+
+
+def from_reference(obj, cls=None):
+    """The port's config equal to `obj`, a config of the reference (or any
+    object with its attribute names): each field of the port's class is
+    read from `obj` by name, so the reference's TPU-only knobs are dropped.
+    `cls` defaults to the port's class of the same name as obj's."""
+    cls = cls or _BY_NAME[type(obj).__name__]
+    kw = {}
+    for f in dataclasses.fields(cls):
+        v = getattr(obj, f.name)
+        if cls is PipelineConfig and f.name in _SUB_CONFIGS:
+            v = from_reference(v, _SUB_CONFIGS[f.name])
+        kw[f.name] = v
+    return cls(**kw)

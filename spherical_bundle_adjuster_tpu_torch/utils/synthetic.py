@@ -45,7 +45,7 @@ def _texture(v, params):
     return torch.clamp(img, 0.0, 1.0) * 255.0
 
 
-def render_erp(params, R, height: int = 128, width: int = 256, device="cpu"):
+def render_erp(params, R, height: int = 128, width: int = 256, device="cuda"):
     """Render the scene viewed through rotation R as an ERP image
     (H, W, 3) uint8 on `device`. render(I) and render(R) form an exact
     pure-rotation pair."""
@@ -62,7 +62,7 @@ def render_erp(params, R, height: int = 128, width: int = 256, device="cpu"):
     return out
 
 
-def rotation_pair(params, euler, height=128, width=256, device="cpu"):
+def rotation_pair(params, euler, height=128, width=256, device="cuda"):
     """(left, right, R_gt): a point seen along left bearing b_l appears in
     the right image along b_r = R_gt @ b_l, R_gt = euler_to_matrix(euler)
     (the reference eval's GT convention)."""

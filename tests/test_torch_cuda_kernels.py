@@ -27,30 +27,66 @@ def _bands(dev, b=3, h=64, w=200, seed=0):
     return integral.integral_image(torch.from_numpy(g).to(dev))
 
 
+# (bands, rows, width): widths that are not a multiple of the kernels'
+# column tiles (200, 2047: edge tiles narrower than the tile, clamped
+# edge copies) and one that is (2048); 64 and 40 rows are shorter than the
+# largest filters, so whole layers are -inf.
+SHAPES = [(1, 64, 200), (3, 64, 2047), (2, 40, 2048)]
+
+
 @pytest.mark.parametrize("n_octaves", [2, 4])
-def test_det_octave_kernel_matches_plain(dev, n_octaves):
+@pytest.mark.parametrize("shape", SHAPES)
+def test_det_octave_kernel_matches_plain(dev, n_octaves, shape):
+    """Every octave bit-identical to the plain version, -inf mask
+    included, from one launch."""
+    b, h, w = shape
     cfg = SurfConfig(n_octaves=n_octaves)
-    ii = _bands(dev)
-    for o in range(n_octaves):
-        before = cuda_surf.DET_PYRAMID.launches
-        k = cuda_surf.det_octave(ii, o, cfg)
-        torch.cuda.synchronize()
-        assert cuda_surf.DET_PYRAMID.launches == before + 1
+    ii = _bands(dev, b, h, w, seed=n_octaves)
+    before = cuda_surf.DET_PYRAMID.launches
+    got = cuda_surf.det_pyramid(ii, cfg)
+    torch.cuda.synchronize()
+    assert cuda_surf.DET_PYRAMID.launches == before + 1 and len(got) == n_octaves
+    empty = 0
+    for o, k in enumerate(got):
         p = cuda_surf.det_octave_plain(ii, o, cfg)
-        fin = torch.isfinite(p)
-        assert torch.equal(fin, torch.isfinite(k))
-        torch.testing.assert_close(k[fin], p[fin], atol=2.0, rtol=1e-4)
+        assert torch.equal(k, p), (o, (k - p).abs().nan_to_num().max().item())
+        empty += int(torch.isinf(p).flatten(2).all(-1).any())
+    assert empty > 0  # a layer whose filter does not fit the band
 
 
-def test_haar_trace_kernel_matches_plain(dev):
-    cfg = SurfConfig(n_octaves=3)
-    ii = _bands(dev, seed=1)
+@pytest.mark.parametrize("n_octaves", [2, 4])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_haar_trace_kernel_matches_plain(dev, n_octaves, shape):
+    """hx, hy and the trace sign bit-identical to the plain version."""
+    b, h, w = shape
+    cfg = SurfConfig(n_octaves=n_octaves)
+    ii = _bands(dev, b, h, w, seed=10 + n_octaves)
+    before = cuda_surf.HAAR_TRACE.launches
     hx, hy, tr = cuda_surf.haar_trace_maps(ii, cfg)
     torch.cuda.synchronize()
+    assert cuda_surf.HAAR_TRACE.launches == before + 1
     px, py, pt = cuda_surf.haar_trace_maps_plain(ii, cfg)
-    torch.testing.assert_close(hx.float(), px.float(), atol=4.0, rtol=2e-2)
-    torch.testing.assert_close(hy.float(), py.float(), atol=4.0, rtol=2e-2)
-    assert (tr != pt).float().mean().item() < 0.01
+    assert torch.equal(hx, px) and torch.equal(hy, py) and torch.equal(tr, pt)
+
+
+def test_surf_kernels_take_only_integral_images_layout(dev):
+    """A dense integral image (row stride 2049 floats, not 16-byte
+    aligned) is refused before any launch; integral_image's layout of the
+    same values gives the plain version's results."""
+    cfg = SurfConfig(n_octaves=2)
+    ii = _bands(dev, 2, 48, 2048, seed=5)
+    dense = ii.contiguous()
+    assert dense.stride(1) == 2049 and torch.equal(dense, ii)
+    before = (cuda_surf.DET_PYRAMID.launches, cuda_surf.HAAR_TRACE.launches)
+    with pytest.raises(ValueError):
+        cuda_surf.det_pyramid(dense, cfg)
+    with pytest.raises(ValueError):
+        cuda_surf.haar_trace_maps(dense, cfg)
+    assert (cuda_surf.DET_PYRAMID.launches, cuda_surf.HAAR_TRACE.launches) == before
+    for k, p in zip(cuda_surf.det_pyramid(ii, cfg), cuda_surf.det_pyramid_plain(dense, cfg)):
+        assert torch.equal(k, p)
+    for a, b in zip(cuda_surf.haar_trace_maps(ii, cfg), cuda_surf.haar_trace_maps_plain(dense, cfg)):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("k1,k2", [(2048, 2048), (100, 333), (1, 64), (300, 2100)])
@@ -102,7 +138,7 @@ def test_top2_kernel_single_valid_row(dev, j):
 def test_wrappers_raise_on_bad_input(dev):
     ii = _bands(dev)
     with pytest.raises(ValueError):
-        cuda_surf.det_octave(ii.double(), 0, SurfConfig())
+        cuda_surf.det_pyramid(ii.double(), SurfConfig())
     with pytest.raises(ValueError):
         cuda_surf.haar_trace_maps(ii[:, :, ::2], SurfConfig())
     d = torch.zeros((4, 32), device=dev)

@@ -11,6 +11,7 @@ import torch
 from spherical_bundle_adjuster_tpu.ops import match as jmatch, pallas_match
 from spherical_bundle_adjuster_tpu.utils.config import MatchConfig
 from spherical_bundle_adjuster_tpu_torch.ops import cuda_match, match as tmatch
+from spherical_bundle_adjuster_tpu_torch.utils import config as tconfig
 
 torch.set_num_threads(1)
 
@@ -88,7 +89,8 @@ def test_top2_single_valid_row(j):
         np.testing.assert_allclose(dist_t.numpy(), dist_ref, atol=2e-3)
     valid1 = np.ones(32, bool)
     mt = tmatch.match_descriptors(torch.from_numpy(d1), torch.from_numpy(valid1),
-                                  torch.from_numpy(d2), torch.from_numpy(valid2), MatchConfig())
+                                  torch.from_numpy(d2), torch.from_numpy(valid2),
+                                  tconfig.from_reference(MatchConfig()))
     mj = jmatch.match_descriptors(jnp.asarray(d1), jnp.asarray(valid1), jnp.asarray(d2),
                                   jnp.asarray(valid2), MatchConfig())
     assert int(mt.count) == int(mj.count) == 0
@@ -128,7 +130,8 @@ def test_match_descriptors_parity(max_matches, ratio):
     mj = jmatch.match_descriptors(jnp.asarray(d1), jnp.asarray(v1), jnp.asarray(d2),
                                   jnp.asarray(v2), cfg)
     mt = tmatch.match_descriptors(torch.from_numpy(d1), torch.from_numpy(v1),
-                                  torch.from_numpy(d2), torch.from_numpy(v2), cfg)
+                                  torch.from_numpy(d2), torch.from_numpy(v2),
+                                  tconfig.from_reference(cfg))
     n = int(mj.count)
     assert n > 20 and int(mt.count) == n
     np.testing.assert_array_equal(mt.valid.numpy(), np.asarray(mj.valid))
@@ -142,7 +145,7 @@ def test_mutual_check_raises():
     with pytest.raises(NotImplementedError):
         tmatch.match_descriptors(torch.from_numpy(d1), torch.from_numpy(v1),
                                  torch.from_numpy(d2), torch.from_numpy(v2),
-                                 MatchConfig(mutual_check=True))
+                                 tconfig.from_reference(MatchConfig(mutual_check=True)))
 
 
 def test_top2_cuda_wrapper_rejects_cpu_tensors():

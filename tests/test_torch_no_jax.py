@@ -1,10 +1,15 @@
-"""The port imports torch and never jax, directly or indirectly; and the
-GPU smoke script refuses to run without a card or without the repo."""
+"""The port imports torch and never jax nor the JAX package, directly or
+indirectly; its entry points default to the card; and the GPU smoke script
+refuses to run without a card or without the repo."""
 
+import ast
+import inspect
 import os
 import subprocess
 import sys
 from pathlib import Path
+
+import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "spherical_bundle_adjuster_tpu_torch"
@@ -16,7 +21,20 @@ def _env():
     return env
 
 
+REFERENCE = "spherical_bundle_adjuster_tpu"
+
+
+def _chip_smoke_imports():
+    """The import statements of chip_smoke.py, as source lines."""
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    return [ast.unparse(n) for n in tree.body
+            if isinstance(n, ast.Import)
+            or (isinstance(n, ast.ImportFrom) and n.module != "__future__")]
+
+
 def test_port_imports_no_jax():
+    """Importing every module of the port and what chip_smoke.py imports
+    loads neither jax nor any module of the JAX package."""
     mods = sorted(
         "spherical_bundle_adjuster_tpu_torch." + ".".join(p.relative_to(PKG).with_suffix("").parts)
         for p in PKG.rglob("*.py")
@@ -25,8 +43,10 @@ def test_port_imports_no_jax():
     code = (
         "import sys, importlib\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')]\n"
-        "assert not bad, bad\n"
+        + "".join(line + "\n" for line in _chip_smoke_imports())
+        + "bad = [m for m in sys.modules if m in ('jax', %r)\n"
+        "       or m.startswith(('jax.', %r))]\n" % (REFERENCE, REFERENCE + ".")
+        + "assert not bad, bad\n"
         "print('ok', len(sys.modules))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -36,11 +56,27 @@ def test_port_imports_no_jax():
 
 
 def test_no_file_of_the_port_mentions_a_jax_import():
+    """No import statement of the port or chip_smoke.py names jax or the
+    JAX package (relative imports stay inside the port)."""
     files = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     for f in files:
-        for line in f.read_text().splitlines():
-            s = line.strip()
-            assert not (s.startswith("import jax") or s.startswith("from jax")), (f, line)
+        for node in ast.walk(ast.parse(f.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module]
+            else:
+                continue
+            for n in names:
+                top = n.split(".")[0]
+                assert top not in ("jax", REFERENCE), (f, node.lineno, n)
+
+
+@pytest.mark.parametrize("fn", ["render_erp", "rotation_pair"])
+def test_synthetic_entry_points_default_to_the_card(fn):
+    from spherical_bundle_adjuster_tpu_torch.utils import synthetic
+
+    assert inspect.signature(getattr(synthetic, fn)).parameters["device"].default == "cuda"
 
 
 def test_chip_smoke_fails_without_a_card():
@@ -49,8 +85,6 @@ def test_chip_smoke_fails_without_a_card():
     import torch
 
     if torch.cuda.is_available():
-        import pytest
-
         pytest.skip("a card is present: the script would run in full")
     out = subprocess.run([sys.executable, "chip_smoke.py"], capture_output=True, text=True,
                          env=_env(), cwd=ROOT, timeout=120)

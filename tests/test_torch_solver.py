@@ -16,6 +16,7 @@ from spherical_bundle_adjuster_tpu.utils.config import BaConfig, PipelineConfig,
 from spherical_bundle_adjuster_tpu_torch.core import rotation as trot
 from spherical_bundle_adjuster_tpu_torch.solver import epipolar as tepi, lm as tlm
 from spherical_bundle_adjuster_tpu_torch.models import twoview as ttv
+from spherical_bundle_adjuster_tpu_torch.utils import config as tconfig
 from test_solver import synth_two_view
 
 torch.set_num_threads(1)
@@ -45,7 +46,8 @@ def test_initial_guess_parity(data, seed):
     key = jax.random.PRNGKey(seed)
     gj = jepi.initial_guess(b1, b2, valid, key, cfg)
     g = _gumbel(key, cfg.num_trials, b1.shape[0])
-    gt = tepi.initial_guess(_t(b1), _t(b2), _t(valid), None, cfg, gumbel=torch.from_numpy(g))
+    gt = tepi.initial_guess(_t(b1), _t(b2), _t(valid), None, tconfig.from_reference(cfg),
+                            gumbel=torch.from_numpy(g))
     assert bool(gj.ok) and bool(gt.ok)
     assert int(gt.num_candidates) == int(gj.num_candidates)
     np.testing.assert_allclose(gt.euler.numpy(), np.asarray(gj.euler), atol=1e-3)
@@ -99,11 +101,12 @@ def test_bcd_stages_parity(data):
     and to max(1e-3, 1.2 x the reference's largest self-gap) in all."""
     b1, b2, valid = data
     ba = BaConfig()
+    tba = tconfig.from_reference(ba)
     r0 = jnp.asarray([-0.07, 0.11, -0.19], jnp.float32)
     t0 = jnp.asarray([0.3, 0.2, -0.1], jnp.float32)
     d0 = jnp.ones((b1.shape[0], 2), jnp.float32)
     dj, rep_dj = jlm.solve_depths(b1, b2, d0, r0, t0, valid, ba)
-    dt, rep_dt = tlm.solve_depths(_t(b1), _t(b2), _t(d0), _t(r0), _t(t0), _t(valid), ba)
+    dt, rep_dt = tlm.solve_depths(_t(b1), _t(b2), _t(d0), _t(r0), _t(t0), _t(valid), tba)
     np.testing.assert_allclose(float(rep_dt.final_cost), float(rep_dj.final_cost), rtol=1e-5)
     np.testing.assert_allclose(float(rep_dt.initial_cost), float(rep_dj.initial_cost), rtol=1e-6)
     one = lambda a, b, c, v: jlm.solve_depths(a[None], b[None], c[None], r0, t0, v[None], ba)[0][0]
@@ -119,17 +122,17 @@ def test_bcd_stages_parity(data):
 
     pair = jnp.stack([dj[0, 0], dj[1, 0]])
     rj, rep_rj = jlm.solve_rotation(b1, b2, pair, r0, t0, valid, ba)
-    rt, rep_rt = tlm.solve_rotation(_t(b1), _t(b2), _t(pair), _t(r0), _t(t0), _t(valid), ba)
+    rt, rep_rt = tlm.solve_rotation(_t(b1), _t(b2), _t(pair), _t(r0), _t(t0), _t(valid), tba)
     np.testing.assert_allclose(rt.numpy(), np.asarray(rj), atol=1e-4)
     np.testing.assert_allclose(float(rep_rt.final_cost), float(rep_rj.final_cost), rtol=1e-4)
 
     tj, _ = jlm.solve_translation(b1, b2, pair, rj, t0, valid, ba)
-    tt, _ = tlm.solve_translation(_t(b1), _t(b2), _t(pair), _t(rj), _t(t0), _t(valid), ba)
+    tt, _ = tlm.solve_translation(_t(b1), _t(b2), _t(pair), _t(rj), _t(t0), _t(valid), tba)
     np.testing.assert_allclose(tt.numpy(), np.asarray(tj), atol=1e-4)
 
     # per-match depths (the non-compat depth layout) take the same path
     rj2, _ = jlm.solve_rotation(b1, b2, dj, r0, t0, valid, ba)
-    rt2, _ = tlm.solve_rotation(_t(b1), _t(b2), _t(dj), _t(r0), _t(t0), _t(valid), ba)
+    rt2, _ = tlm.solve_rotation(_t(b1), _t(b2), _t(dj), _t(r0), _t(t0), _t(valid), tba)
     np.testing.assert_allclose(rt2.numpy(), np.asarray(rj2), atol=1e-4)
 
 
@@ -156,7 +159,8 @@ def test_adjust_from_matches_parity(data):
     key = jax.random.PRNGKey(2)
     rj, tj, dj, gj, telj = jtv.adjust_from_matches(b1, b2, valid, key, cfg)
     g = torch.from_numpy(_gumbel(key, cfg.ransac.num_trials, b1.shape[0]))
-    rt, tt, dt, gt, telt = ttv.adjust_from_matches(_t(b1), _t(b2), _t(valid), None, cfg, gumbel=g)
+    rt, tt, dt, gt, telt = ttv.adjust_from_matches(_t(b1), _t(b2), _t(valid), None,
+                                                 tconfig.from_reference(cfg), gumbel=g)
     np.testing.assert_allclose(rt.numpy(), np.asarray(rj), atol=1e-4)
     np.testing.assert_allclose(tt.numpy(), np.asarray(tj), atol=1e-4)
     # Depths: the ftol stop race of test_bcd_stages_parity, compounded over
@@ -176,14 +180,16 @@ def test_adjust_from_matches_parity(data):
 def test_corrected_mode_raises(data, ba):
     b1, b2, valid = data
     with pytest.raises(NotImplementedError):
-        ttv.adjust_from_matches(_t(b1), _t(b2), _t(valid), None, PipelineConfig(ba=ba))
+        ttv.adjust_from_matches(_t(b1), _t(b2), _t(valid), None,
+                                tconfig.from_reference(PipelineConfig(ba=ba)))
 
 
 def test_inlier_count_scoring_raises(data):
     b1, b2, valid = data
     cfg = dataclasses.replace(RansacConfig(), scoring="inlier_count")
     with pytest.raises(NotImplementedError):
-        tepi.initial_guess(_t(b1), _t(b2), _t(valid), torch.Generator().manual_seed(0), cfg)
+        tepi.initial_guess(_t(b1), _t(b2), _t(valid), torch.Generator().manual_seed(0),
+                           tconfig.from_reference(cfg))
 
 
 def test_generator_draws_are_seeded(data):

@@ -17,7 +17,7 @@ from spherical_bundle_adjuster_tpu.models import twoview as jtv
 from spherical_bundle_adjuster_tpu.utils import synthetic as jsyn
 from spherical_bundle_adjuster_tpu.utils.config import MatchConfig, PipelineConfig, SurfConfig
 from spherical_bundle_adjuster_tpu_torch.models import twoview as ttv
-from spherical_bundle_adjuster_tpu_torch.utils import synthetic as tsyn
+from spherical_bundle_adjuster_tpu_torch.utils import config as tconfig, synthetic as tsyn
 
 torch.set_num_threads(1)
 
@@ -28,6 +28,7 @@ CFG = PipelineConfig(
                     topk_mode="exact"),
     match=MatchConfig(max_matches=256, ratio_thresh=0.5),
 ).parity()
+TCFG = tconfig.from_reference(CFG)
 
 
 def _jax_render(params, R):
@@ -47,7 +48,7 @@ def scene():
     R = np.asarray(jrot.euler_to_matrix(jnp.asarray(euler)))
     left_j = _jax_render(params, jnp.eye(3))
     right_j = _jax_render(params, jnp.asarray(R.T))
-    left_t, right_t, R_t = tsyn.rotation_pair(params, euler, H, W)
+    left_t, right_t, R_t = tsyn.rotation_pair(params, euler, H, W, "cpu")
     return params, euler, R, (left_j, right_j), (left_t, right_t, R_t)
 
 
@@ -78,7 +79,7 @@ def test_run_two_view_parity(scene):
     draws = np.asarray(jax.vmap(lambda k: jax.random.gumbel(k, (m,)))(keys))
 
     # first pass: the port's own match list
-    fr_t = ttv.FRONTENDS["band"](torch.from_numpy(lj), torch.from_numpy(rj), CFG)
+    fr_t = ttv.FRONTENDS["band"](torch.from_numpy(lj), torch.from_numpy(rj), TCFG)
     vj = np.asarray(out_j.match_valid)
     nj, nt = int(vj.sum()), int(fr_t.match_count)
     assert nj >= 20 and abs(nj - nt) <= 2
@@ -95,7 +96,7 @@ def test_run_two_view_parity(scene):
     free = iter([j for j in range(m) if j not in used])
     perm = np.asarray([p if p >= 0 else next(free) for p in perm])
 
-    out_t = ttv.run_two_view(torch.from_numpy(lj), torch.from_numpy(rj), None, CFG,
+    out_t = ttv.run_two_view(torch.from_numpy(lj), torch.from_numpy(rj), None, TCFG,
                              frontend="band", gumbel=torch.from_numpy(draws[:, perm]))
     assert bool(out_t.ok) and bool(out_j.ok)
     assert int(out_t.num_matches) == nt
@@ -110,17 +111,17 @@ def test_run_two_view_parity(scene):
 def test_unported_entry_points_raise(scene):
     _, _, _, _, (lt, rt, _) = scene
     with pytest.raises(NotImplementedError):
-        ttv.run_two_view(lt, rt, torch.Generator().manual_seed(0), CFG, frontend="cubemap")
+        ttv.run_two_view(lt, rt, torch.Generator().manual_seed(0), TCFG, frontend="cubemap")
     with pytest.raises(NotImplementedError):
-        ttv.run_two_view_batch(lt[None], rt[None], None, CFG)
+        ttv.run_two_view_batch(lt[None], rt[None], None, TCFG)
 
 
 def test_auto_ladder_reruns_dense_only_when_short(scene):
     """auto == parity when the parity ladder finds enough matches."""
     _, _, _, _, (lt, rt, _) = scene
-    auto = dataclasses.replace(CFG, frontend=dataclasses.replace(CFG.frontend, band_ladder="auto"))
+    auto = dataclasses.replace(TCFG, frontend=dataclasses.replace(TCFG.frontend, band_ladder="auto"))
     fr_auto = ttv.FRONTENDS["band"](lt, rt, auto)
-    fr_par = ttv.FRONTENDS["band"](lt, rt, CFG)
+    fr_par = ttv.FRONTENDS["band"](lt, rt, TCFG)
     assert int(fr_par.match_count) >= auto.frontend.auto_min_matches
     torch.testing.assert_close(fr_auto.left_xy, fr_par.left_xy)
 
@@ -133,7 +134,8 @@ def test_dense_ladder_frontend_parity(scene):
     _, _, _, (lj, rj), _ = scene
     dense = dataclasses.replace(CFG, frontend=dataclasses.replace(CFG.frontend, band_ladder="dense"))
     fj = jfront.band_frontend(jnp.asarray(lj), jnp.asarray(rj), dense)
-    ft = ttv.FRONTENDS["band"](torch.from_numpy(lj), torch.from_numpy(rj), dense)
+    ft = ttv.FRONTENDS["band"](torch.from_numpy(lj), torch.from_numpy(rj),
+                               tconfig.from_reference(dense))
     nj, nt = int(fj.match_count), int(ft.match_count)
     assert nj >= 20 and abs(nj - nt) <= 2
     pj = np.concatenate([np.asarray(fj.left_xy), np.asarray(fj.right_xy)], -1)[:nj]
