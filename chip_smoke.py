@@ -11,7 +11,9 @@ Phases, each printing its own line:
   2. kernels: K1 (det pyramid) and K2 (Haar / trace maps), bit-identical
      to their plain PyTorch versions, and K3 (top-2 matcher) within its
      tolerance, at the slice's shapes (the 8 bands of one 1024x2048 pair;
-     2048 x 2048 x 64 descriptor banks), with times for each kernel, its
+     2048 x 2048 x 64 descriptor banks; for K3 also exact ties planted
+     across its lanes and blocks, a ragged 1000 x 2100 bank and an
+     all-invalid bank), with times for each kernel, its
      plain version and, for K3, one library call (cdist + topk), and each
      kernel's bound (bytes or fp32 operations over the H100's peaks);
   3. slice: run_two_view(..., frontend="band") on 4 synthetic 1024x2048
@@ -214,14 +216,37 @@ def phase_kernels(dev):
     d1 = torch.nn.functional.normalize(torch.randn(2048, 64, device=dev, generator=g), dim=-1)
     d2 = torch.nn.functional.normalize(torch.randn(2048, 64, device=dev, generator=g), dim=-1)
     v2 = torch.rand(2048, device=dev, generator=g) > 0.1
-    dist, idx = cuda_match.top2_distances_cuda(d1, d2, v2)
+
+    def k3_case(name, q, t, v):
+        """K3 against its plain version: identical indices, distances
+        within 2e-3; returns (dist, idx, max_abs_err)."""
+        dist, idx = cuda_match.top2_distances_cuda(q, t, v)
+        torch.cuda.synchronize()
+        pdist, pidx = cuda_match.top2_distances_plain(q, t, v)
+        require(torch.equal(idx, pidx), f"K3 {name}: indices differ")
+        err = max_abs_err(dist, pdist)
+        require(err <= 2e-3, f"K3 {name}: distances differ by {err}")
+        return dist, idx, err
+
+    dist, idx, err = k3_case("2048 x 2048", d1, d2, v2)
+    # exact duplicates of query 0 in two lanes of one sub-tile and in other
+    # blocks of its query tile, of query 1 across blocks with one invalid
+    tied, tv = d2.clone(), v2.clone()
+    tied[[1, 16, 1025, 2047]] = d1[0]
+    tied[[6, 700, 1500, 2046]] = d1[1]
+    tv[[1, 16, 1025, 2047, 6, 1500, 2046]] = True
+    tv[700] = False
+    _, tidx, terr = k3_case("ties", d1, tied, tv)
+    require(tidx[0].tolist() == [1, 16] and tidx[1].tolist() == [6, 1500],
+            f"K3 ties: {tidx[:2].tolist()} instead of [[1, 16], [6, 1500]]")
+    # a ragged bank: 1000 queries, 2100 train rows
+    rq = torch.nn.functional.normalize(torch.randn(1000, 64, device=dev, generator=g), dim=-1)
+    rt = torch.nn.functional.normalize(torch.randn(2100, 64, device=dev, generator=g), dim=-1)
+    _, _, rerr = k3_case("1000 x 2100", rq, rt, torch.rand(2100, device=dev, generator=g) > 0.1)
+    inv, inv_idx = cuda_match.top2_distances_cuda(d1, d2, torch.zeros_like(v2))
     torch.cuda.synchronize()
-    pdist, pidx = cuda_match.top2_distances_plain(d1, d2, v2)
-    require(torch.equal(idx, pidx), "K3 indices differ")
-    require(torch.allclose(dist, pdist, atol=2e-3, rtol=0), "K3 distances differ")
-    inv, _ = cuda_match.top2_distances_cuda(d1, d2, torch.zeros_like(v2))
-    torch.cuda.synchronize()
-    require(bool(torch.isinf(inv).all()), "K3 all-invalid bank did not give inf")
+    require(bool(torch.isinf(inv).all()) and not bool(inv_idx.any()),
+            "K3 all-invalid bank did not give (inf, index 0)")
 
     def library_top2():  # the yardstick only: the port never calls it
         return torch.topk(torch.cdist(d1, d2).masked_fill_(~v2, torch.inf), 2, largest=False)
@@ -229,12 +254,13 @@ def phase_kernels(dev):
     rows.append(dict(
         name="top2_distances", route="cuda", source="spherical_bundle_adjuster_tpu_torch/csrc/match_top2.cu",
         replaces="spherical_bundle_adjuster_tpu/ops/pallas_match.py:89",
-        max_abs_err=(dist - pdist).abs().max().item(),
+        max_abs_err=err, max_abs_err_ties=terr, max_abs_err_ragged=rerr,
         ms=time_ms(lambda: cuda_match.top2_distances_cuda(d1, d2, v2)),
         plain_ms=time_ms(lambda: cuda_match.top2_distances_plain(d1, d2, v2)),
         **bound(nbytes(d1, d2, v2, dist, idx), 2 * d1.shape[0] * d2.shape[0] * d1.shape[1]),
         library_ms=time_ms(library_top2), library="torch.cdist + torch.topk(2, largest=False)",
-        tolerance="identical indices; distance atol 2e-3; all-invalid gives inf",
+        tolerance="identical indices; distance atol 2e-3 (2048 x 2048, planted ties, "
+                  "1000 x 2100); all-invalid gives (inf, index 0)",
     ))
     for r in rows:
         log("kernel", **r)

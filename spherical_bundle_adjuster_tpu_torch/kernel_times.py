@@ -11,19 +11,24 @@ so two versions of the kernels are timed by the same code. Each line of
 output is one JSON object: the kernel, its device time per call
 (`device_ms`: CUDA events around back-to-back calls queued behind a GPU
 spin, so host overhead does not count), its wall time per call with the
-host in the loop (`wall_ms`), and the card's name and power limit. Needs
-one NVIDIA GPU.
+host in the loop (`wall_ms`), a digest of its outputs' bytes
+(`out_sha`: equal digests from two trees mean bit-identical outputs on
+the same inputs), and the card's name and power limit. Needs one NVIDIA
+GPU.
 
-For this tree's K1 and K2 only: `--stage-bytes` times them under other
+For this tree only: `--stage-bytes` times K1 and K2 under other
 shared-memory staging budgets (ops/cuda_surf.STAGE_BYTES), and
 `--ablate` also times the kernels built without their shared-memory
 copies (SBA_NO_STAGE) and without their compute (SBA_NO_COMPUTE), which
-splits their time between staging and compute. Those lines carry the
-budget and the variant.
+splits their time between staging and compute. For K3 it also times
+one query tile alone (`top2_one_tile`: 128 queries, one block per SM)
+and K3 built without the merge of the blocks' top-2 (SBA_NO_MERGE).
+Those lines carry the budget and the variant.
 """
 
 from __future__ import annotations
 
+import hashlib
 import time
 
 import torch
@@ -58,6 +63,22 @@ def device_ms(fn, iters=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters, wall
+
+
+def digest(out):
+    """sha256 (first 16 hex digits) of the bytes of a tensor or of a
+    nested tuple or list of tensors."""
+    h = hashlib.sha256()
+
+    def feed(x):
+        if isinstance(x, (tuple, list)):
+            for y in x:
+                feed(y)
+        else:
+            h.update(x.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes())
+
+    feed(out)
+    return h.hexdigest()[:16]
 
 
 def main():
@@ -102,27 +123,43 @@ def main():
     runs["top2_distances"] = lambda: cuda_match.top2_distances_cuda(d1, d2, v2)
     for name, fn in runs.items():
         dms, wms = device_ms(fn)
+        out = fn()
+        torch.cuda.synchronize()
         print(json.dumps({"tree": args.label, "kernel": name, "device_ms": dms, "wall_ms": wms,
-                          "card": card}), flush=True)
+                          "out_sha": digest(out), "card": card}), flush=True)
     if not (args.stage_bytes or args.ablate):
         return
     from spherical_bundle_adjuster_tpu_torch.ops import kernels
 
     budgets = [int(b) for b in args.stage_bytes.split(",") if b] or [cuda_surf.STAGE_BYTES]
-    variants = {"full": ()}
+    q_tile = d1[: cuda_match.Q_TILE].contiguous()
+    runs["top2_one_tile"] = lambda: cuda_match.top2_distances_cuda(q_tile, d2, v2)
+    surf = ("det_pyramid", "haar_trace_maps")
+    k3 = ("top2_distances", "top2_one_tile")
+    # variant -> (macros, kernels timed)
+    variants = {"full": ((), surf + k3)}
     if args.ablate:
-        variants.update(no_stage=("SBA_NO_STAGE",), no_compute=("SBA_NO_COMPUTE",))
-    for variant, defines in variants.items():
+        variants.update(
+            no_stage=(("SBA_NO_STAGE",), surf + k3),
+            no_compute=(("SBA_NO_COMPUTE",), surf + k3),
+            no_merge=(("SBA_NO_MERGE",), k3),
+        )
+    for variant, (defines, names) in variants.items():
         kernels.library(defines)
         for budget in budgets:
             cuda_surf.STAGE_BYTES = budget
             cuda_surf._det_plan.cache_clear()
             cuda_surf._haar_plan.cache_clear()
-            for name in ("det_pyramid", "haar_trace_maps"):
+            for name in names:
+                if name in surf:
+                    line = {"stage_bytes": budget}
+                elif budget == budgets[0]:  # K3 does not read the budget
+                    line = {}
+                else:
+                    continue
                 dms, wms = device_ms(runs[name])
-                print(json.dumps({"tree": args.label, "kernel": name, "variant": variant,
-                                  "stage_bytes": budget, "device_ms": dms, "wall_ms": wms,
-                                  "card": card}), flush=True)
+                print(json.dumps({"tree": args.label, "kernel": name, "variant": variant, **line,
+                                  "device_ms": dms, "wall_ms": wms, "card": card}), flush=True)
 
 
 if __name__ == "__main__":

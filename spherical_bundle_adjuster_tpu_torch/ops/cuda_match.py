@@ -6,7 +6,10 @@ spherical_bundle_adjuster_tpu/ops/pallas_match.top2_distances: for each
 query, the two nearest valid train descriptors by
 d2 = max(|q|^2 + |t|^2 - 2 q.t, 0), invalid train slots +inf, ties to the
 lower index (lax.top_k's order); returns sqrt distances and int32
-indices without storing the K1 x K2 matrix (csrc/match_top2.cu).
+indices without storing the K1 x K2 matrix (csrc/match_top2.cu: one
+launch of a register-tiled fp32 product; the blocks of one query tile
+each take a span of the train bank, and the last of them to finish
+merges their top-2). `top2_plan` chooses its tiling.
 
 For CUDA tensors the wrapper launches the kernel or raises; for CPU
 tensors it runs the plain version: query chunks against the whole bank,
@@ -20,17 +23,60 @@ references give other values). match_descriptors rejects such a query.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from . import kernels
 
 TOP2 = kernels.Kernel("sba_top2")
 _CHUNK = 4096  # query rows per plain distance block
-# The kernel splits the train bank across blocks (a partial top-2 per
-# split, then a merge): about one split per 128 train rows, at most 16,
-# which gives a 2048-row bank 32 x 16 blocks.
-_SPLIT_ROWS = 128
-_MAX_SPLITS = 16
+# The kernel's tiling (csrc/match_top2.cu kQTile and kSub; the kernel
+# refuses a plan of other tiles).
+Q_TILE = 128  # queries per block
+SUB_ROWS = 128  # train rows per staged sub-tile, the unit of a block's span
+MAX_SPLITS = 8  # blocks per query tile
+
+
+class Top2Plan(NamedTuple):
+    """K3's grid: `q_tiles` query tiles of Q_TILE rows, each taken by
+    `splits` blocks; block r of a query tile takes the train rows
+    [r * span, min((r + 1) * span, k2)) (none when r * span >= k2)."""
+
+    q_tiles: int
+    splits: int
+    span: int
+
+
+def top2_plan(k1: int, k2: int) -> Top2Plan:
+    """The train bank is cut into SUB_ROWS units and spread over up to
+    MAX_SPLITS blocks per query tile, each taking an equal whole number
+    of units: at 2048 x 2048, 16 query tiles x 8 blocks of 256 rows (128
+    blocks, one wave on 132 SMs at one block per SM); larger banks give
+    each block more rows, not more blocks."""
+    if k1 < 1 or k2 < 1:
+        raise ValueError(f"top2_plan: empty bank ({k1} queries, {k2} train rows)")
+    units = -(-k2 // SUB_ROWS)
+    splits = min(MAX_SPLITS, units)
+    return Top2Plan(q_tiles=-(-k1 // Q_TILE), splits=splits,
+                    span=-(-units // splits) * SUB_ROWS)
+
+
+# One arrival counter per query tile, for each (device, stream): zero
+# before each launch, and the kernel leaves it zero (the last block of a
+# tile resets it), so it is zeroed once, when it is allocated. Launches on
+# one stream run in order, and launches on two streams that may overlap
+# count on two buffers.
+_COUNTERS: dict = {}
+
+
+def _counters(dev, n):
+    key = (dev, torch.cuda.current_stream(dev).cuda_stream)
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=dev)
+        _COUNTERS[key] = buf
+    return buf
 
 
 def top2_distances_plain(desc1, desc2, valid2):
@@ -57,7 +103,8 @@ def top2_distances_plain(desc1, desc2, valid2):
 
 def top2_distances_cuda(desc1, desc2, valid2):
     """K3 on the card: same contract as top2_distances_plain. Takes
-    contiguous f32 (K1, 64) and (K2, 64) banks and a bool (K2,) mask."""
+    contiguous, 16-byte aligned f32 (K1, 64) and (K2, 64) banks and a
+    bool (K2,) mask."""
     dev = desc1.device
     k1, dim = desc1.shape
     k2 = desc2.shape[0]
@@ -68,15 +115,17 @@ def top2_distances_cuda(desc1, desc2, valid2):
         raise ValueError(f"top2_distances: descriptor width must be 64, got {dim}")
     if k1 < 1 or k2 < 1:
         raise ValueError(f"top2_distances: empty bank ({k1} queries, {k2} train rows)")
-    n_split = max(1, min(_MAX_SPLITS, k2 // _SPLIT_ROWS))
-    part_dist = torch.empty((n_split, k1, 2), dtype=torch.float32, device=dev)
-    part_idx = torch.empty((n_split, k1, 2), dtype=torch.int32, device=dev)
+    if desc1.data_ptr() % 16 or desc2.data_ptr() % 16:
+        raise ValueError("top2_distances: the banks must be 16-byte aligned")
+    plan = top2_plan(k1, k2)
     dist = torch.empty((k1, 2), dtype=torch.float32, device=dev)
     idx = torch.empty((k1, 2), dtype=torch.int32, device=dev)
+    part = torch.empty((plan.splits, k1, 4), dtype=torch.float32, device=dev)
     TOP2.launch(
         dev, kernels.ptr(desc1), kernels.ptr(desc2), kernels.ptr(valid2),
-        kernels.ptr(part_dist), kernels.ptr(part_idx), kernels.ptr(dist),
-        kernels.ptr(idx), k1, k2, dim, n_split,
+        kernels.ptr(dist), kernels.ptr(idx), kernels.ptr(part),
+        kernels.ptr(_counters(dev, plan.q_tiles)), k1, k2, dim, Q_TILE, plan.q_tiles,
+        plan.span, plan.splits,
     )
     return dist, idx
 

@@ -36,7 +36,7 @@ _I = ctypes.c_int
 SIGNATURES = {
     "sba_det_pyramid": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "sba_haar_trace": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    "sba_top2": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "sba_top2": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lib = None
@@ -60,8 +60,8 @@ def _nvcc():
 
 def build(verbose: bool = False, defines=()) -> Path:
     """Compile csrc/*.cu into build/libsba_kernels_<hash>.so (if absent).
-    `defines`: macros to set, for the measurement variants of
-    csrc/surf_maps.cu (kernel_times.py --ablate)."""
+    `defines`: macros to set, for the measurement variants of the
+    kernels (kernel_times.py --ablate)."""
     global build_seconds
     srcs = _sources()
     flags = [*ARCH_FLAGS, *(f"-D{d}" for d in defines)]

@@ -4,7 +4,9 @@ Counterpart of spherical_bundle_adjuster_tpu/ops/match.py. The top-2
 always comes from K3 (ops/cuda_match.top2_distances) on CUDA, at every
 bank size; the reference's TPU-only size dispatch is not carried over.
 The output is a fixed-capacity match list packed by ascending distance
-(stable sort, as jnp.argsort).
+(stable sort, as jnp.argsort). `mutual_check` back-matches each train
+column over the full K1 x K2 squared-distance matrix in plain PyTorch, as
+the reference's dense branch does outside any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -35,14 +37,9 @@ class Matches(NamedTuple):
 def match_descriptors(desc1, valid1, desc2, valid2, cfg: MatchConfig = MatchConfig()):
     """One-way kNN(k=2) + ratio test. desc1: (K1, D) queries, desc2:
     (K2, D) train bank, valid1 / valid2: bool masks of the padded slots."""
-    if cfg.mutual_check:
-        raise NotImplementedError(
-            "mutual_check is not ported yet (ROADMAP queue 2, with K3's speed work)"
-        )
-    dists, idx2 = cuda_match.top2_distances(
-        desc1.to(torch.float32).contiguous(), desc2.to(torch.float32).contiguous(),
-        valid2.contiguous(),
-    )
+    d1 = desc1.to(torch.float32).contiguous()
+    d2 = desc2.to(torch.float32).contiguous()
+    dists, idx2 = cuda_match.top2_distances(d1, d2, valid2.contiguous())
     best, second = dists[:, 0], dists[:, 1]
     best_idx = idx2[:, 0]
     good = (
@@ -51,6 +48,15 @@ def match_descriptors(desc1, valid1, desc2, valid2, cfg: MatchConfig = MatchConf
         & torch.isfinite(second)
         & (best < cfg.ratio_thresh * second)
     )
+    if cfg.mutual_check:
+        # the best query of the best train column must point back
+        # (argmin: the first minimum, as jnp.argmin)
+        sq1 = torch.sum(d1 * d1, dim=-1, keepdim=True)
+        sq2 = torch.sum(d2 * d2, dim=-1)
+        dist2 = torch.clamp(sq1 + sq2 - 2.0 * (d1 @ d2.T), min=0.0)
+        keep = valid1[:, None] & valid2[None, :]
+        back = torch.argmin(torch.where(keep, dist2, torch.inf), dim=0)
+        good = good & (back[best_idx.long()] == torch.arange(d1.shape[0], device=d1.device))
 
     m = cfg.max_matches
     k1 = best.shape[0]

@@ -89,20 +89,100 @@ def test_surf_kernels_take_only_integral_images_layout(dev):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("k1,k2", [(2048, 2048), (100, 333), (1, 64), (300, 2100)])
+@pytest.mark.parametrize("k1,k2", [(2048, 2048), (100, 333), (1, 64), (7, 50), (300, 2100),
+                                   (1000, 2100), (8192, 8192)])
 def test_top2_kernel_matches_plain(dev, k1, k2):
-    """Identical indices and distances within 2e-3; the train-bank splits
-    cover one split (64 rows), a ragged one (333), and 16 splits of which
-    the last few are empty (2100)."""
+    """Identical indices and distances within 2e-3, from one launch: a bank
+    smaller than one 128-row sub-tile (50, 64), a ragged one (333), a
+    query tile whose last blocks take no rows (2100), ragged query tiles
+    (100, 300, 1000), and an 8192-row bank whose blocks loop over 8
+    sub-tiles each."""
     rng = np.random.default_rng(k1 + k2)
     d1 = torch.from_numpy(rng.normal(size=(k1, 64)).astype(np.float32)).to(dev)
     d2 = torch.from_numpy(rng.normal(size=(k2, 64)).astype(np.float32)).to(dev)
     v2 = torch.from_numpy(rng.random(k2) > 0.1).to(dev)
+    before = cuda_match.TOP2.launches
     dist, idx = cuda_match.top2_distances(d1, d2, v2)
     torch.cuda.synchronize()
+    assert cuda_match.TOP2.launches == before + 1
     pd, pi = cuda_match.top2_distances_plain(d1, d2, v2)
     assert torch.equal(idx, pi)
     torch.testing.assert_close(dist, pd, atol=2e-3, rtol=0)
+
+
+@pytest.mark.parametrize("k2", [2048, 2100])
+def test_top2_kernel_ties_across_lanes_and_blocks(dev, k2):
+    """Exact duplicates of query 0 at rows 1 and 16 (two lanes of one
+    sub-tile, the higher lane index holding the lower row), 1025 and k2 - 1
+    (other blocks of the query tile); of query 1 at rows 6, 700 (invalid),
+    1500 and 2047. The lower indices win, the second slot is the next valid
+    duplicate, and every index equals the plain version's. Unit rows, as
+    SURF descriptors are: the distance of a duplicate is then the square
+    root of a rounding residual of |q|^2 + |t|^2 - 2 q.t near 1e-7, within
+    the tolerance (for rows of norm 8 it would be near 3e-3)."""
+    rng = np.random.default_rng(k2)
+    unit = lambda x: x / np.linalg.norm(x, axis=-1, keepdims=True)
+    d1 = torch.from_numpy(unit(rng.normal(size=(2048, 64))).astype(np.float32)).to(dev)
+    d2 = torch.from_numpy(unit(rng.normal(size=(k2, 64))).astype(np.float32)).to(dev)
+    v2 = torch.from_numpy(rng.random(k2) > 0.1).to(dev)
+    d2[[1, 16, 1025, k2 - 1]] = d1[0]
+    d2[[6, 700, 1500, 2047 if k2 > 2048 else 2046]] = d1[1]
+    v2[[1, 16, 1025, k2 - 1, 6, 1500]] = True
+    v2[700] = False
+    dist, idx = cuda_match.top2_distances(d1, d2, v2)
+    torch.cuda.synchronize()
+    assert idx[0].tolist() == [1, 16] and idx[1].tolist() == [6, 1500]
+    assert dist[0, 0] == dist[0, 1] and dist[1, 0] == dist[1, 1]
+    pd, pi = cuda_match.top2_distances_plain(d1, d2, v2)
+    assert torch.equal(idx, pi)
+    torch.testing.assert_close(dist, pd, atol=2e-3, rtol=0)
+
+
+def test_top2_kernel_on_two_streams_at_once(dev):
+    """Launches on two streams overlap (both queued behind a spin, 32
+    blocks each), and each still gives the plain version's result: the
+    blocks of one launch count their arrivals apart from the other's."""
+    rng = np.random.default_rng(3)
+    banks = []
+    for _ in range(2):
+        d1 = torch.from_numpy(rng.normal(size=(512, 64)).astype(np.float32)).to(dev)
+        d2 = torch.from_numpy(rng.normal(size=(2048, 64)).astype(np.float32)).to(dev)
+        banks.append((d1, d2, torch.from_numpy(rng.random(2048) > 0.1).to(dev)))
+    want = [cuda_match.top2_distances_plain(*b) for b in banks]
+    streams = [torch.cuda.Stream(dev) for _ in banks]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(s):
+            torch.cuda._sleep(10**7)
+    got = []
+    for _ in range(4):
+        for s, b in zip(streams, banks):
+            with torch.cuda.stream(s):
+                got.append(cuda_match.top2_distances(*b))
+    torch.cuda.synchronize()
+    for k, (dist, idx) in enumerate(got):
+        pd, pi = want[k % 2]
+        assert torch.equal(idx, pi), k
+        torch.testing.assert_close(dist, pd, atol=2e-3, rtol=0)
+
+
+def test_match_descriptors_mutual_check_on_the_card(dev):
+    """The same matches on the card as on the CPU, with mutual_check."""
+    from spherical_bundle_adjuster_tpu_torch.ops import match
+
+    rng = np.random.default_rng(9)
+    d2 = rng.normal(size=(2048, 64))
+    d2 /= np.linalg.norm(d2, axis=-1, keepdims=True)
+    d1 = d2[rng.permutation(2048)] + rng.normal(scale=0.1, size=(2048, 64))
+    d1 /= np.linalg.norm(d1, axis=-1, keepdims=True)
+    banks = [torch.from_numpy(x.astype(np.float32)) for x in (d1, d2)]
+    v1, v2 = (torch.from_numpy(rng.random(2048) > 0.1) for _ in range(2))
+    cfg = MatchConfig(max_matches=1024, ratio_thresh=0.8, mutual_check=True)
+    mc = match.match_descriptors(banks[0].to(dev), v1.to(dev), banks[1].to(dev), v2.to(dev), cfg)
+    mh = match.match_descriptors(banks[0], v1, banks[1], v2, cfg)
+    assert int(mc.count) == int(mh.count) > 100
+    for a, b in zip(mc, mh):
+        torch.testing.assert_close(a.cpu(), b, atol=2e-3, rtol=0)
 
 
 def test_top2_kernel_all_invalid_and_ties(dev):
@@ -119,7 +199,7 @@ def test_top2_kernel_all_invalid_and_ties(dev):
 
 @pytest.mark.parametrize("j", [0, 1500])
 def test_top2_kernel_single_valid_row(dev, j):
-    """One valid row, in the first split or a later one: the same winner
+    """One valid row, in the first block or a later one: the same winner
     and distances as the plain version, the second distance inf (its index
     is unspecified then)."""
     rng = np.random.default_rng(j)

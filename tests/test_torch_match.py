@@ -140,12 +140,26 @@ def test_match_descriptors_parity(max_matches, ratio):
     np.testing.assert_allclose(mt.distance.numpy(), np.asarray(mj.distance), atol=2e-3)
 
 
-def test_mutual_check_raises():
-    d1, v1, d2, v2 = _planted_banks(0)
-    with pytest.raises(NotImplementedError):
-        tmatch.match_descriptors(torch.from_numpy(d1), torch.from_numpy(v1),
-                                 torch.from_numpy(d2), torch.from_numpy(v2),
-                                 tconfig.from_reference(MatchConfig(mutual_check=True)))
+@pytest.mark.parametrize("seed,max_matches,ratio", [(128, 128, 0.5), (7, 512, 0.95)])
+def test_mutual_check_parity(seed, max_matches, ratio):
+    """The back-match over the dense matrix: identical (query, train) pairs
+    in the same packed order; at ratio 0.95 it drops one-way matches."""
+    d1, v1, d2, v2 = _planted_banks(seed)
+    counts = []
+    for mutual in (False, True):
+        cfg = MatchConfig(max_matches=max_matches, ratio_thresh=ratio, mutual_check=mutual)
+        mj = jmatch.match_descriptors(jnp.asarray(d1), jnp.asarray(v1), jnp.asarray(d2),
+                                      jnp.asarray(v2), cfg)
+        mt = tmatch.match_descriptors(torch.from_numpy(d1), torch.from_numpy(v1),
+                                      torch.from_numpy(d2), torch.from_numpy(v2),
+                                      tconfig.from_reference(cfg))
+        np.testing.assert_array_equal(mt.valid.numpy(), np.asarray(mj.valid))
+        np.testing.assert_array_equal(mt.query_idx.numpy(), np.asarray(mj.query_idx))
+        np.testing.assert_array_equal(mt.train_idx.numpy(), np.asarray(mj.train_idx))
+        np.testing.assert_allclose(mt.distance.numpy(), np.asarray(mj.distance), atol=2e-3)
+        counts.append(int(mt.count))
+    assert counts[1] > 20 and counts[1] <= counts[0]
+    assert (counts[1] < counts[0]) == (ratio > 0.9)
 
 
 def test_top2_cuda_wrapper_rejects_cpu_tensors():
