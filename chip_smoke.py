@@ -19,7 +19,17 @@ Phases, each printing its own line:
   3. slice: run_two_view(..., frontend="band") on 4 synthetic 1024x2048
      rotation pairs under the 2K bench config (compat BA), with the
      kernels' launch counts and the bench's 2K compat gates;
-  4. 512x1024: one pair under the 512 bench config, timed and gated.
+  4. slice_2k_corrected: the same 4 pairs in the bench's corrected mode
+     (per-match depths, outlier gates, joint Schur, 4 starts, 240 RANSAC
+     trials), with launch counts and the bench's 2K corrected gates;
+  5. pair_512x1024: 4 pairs under the 512 bench config, compat and
+     corrected, gated on the bench's 512 gates (the bench takes its
+     medians over 16 pairs, this phase over 4);
+  6. pitch60_corrected: 2 pairs at pitch 60 deg under the default auto
+     band ladder in corrected mode, gated on the bench's pitch-cell gates.
+
+Each pipeline phase sets the kernels' launch counts to 0 before its
+measured runs and fails if a kernel of the path was not launched.
 
 Then one JSON line with every kernel's numbers, and a last line
 {"ok": true, "device": {...}}. Any failed phase raises and exits non-zero.
@@ -27,7 +37,9 @@ Then one JSON line with every kernel's numbers, and a last line
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import math
 import subprocess
 import sys
 
@@ -35,11 +47,11 @@ import numpy as np
 import torch
 
 from spherical_bundle_adjuster_tpu_torch import kernel_times
-from spherical_bundle_adjuster_tpu_torch.models import frontend, twoview
+from spherical_bundle_adjuster_tpu_torch.models import evaluation, frontend, twoview
 from spherical_bundle_adjuster_tpu_torch.ops import cuda_match, cuda_surf, integral, kernels
 from spherical_bundle_adjuster_tpu_torch.utils import synthetic
 from spherical_bundle_adjuster_tpu_torch.utils.config import (
-    MatchConfig, PipelineConfig, SurfConfig,
+    FrontendConfig, MatchConfig, PipelineConfig, SurfConfig,
 )
 
 # The bench's configs (bench.py bench_config_2k / bench_config) and its 2K
@@ -56,10 +68,34 @@ GATE_MIN_MATCHES = 40
 GATE_MAX_OUTLIER_PCT = 12.5
 GATE_MED_ROT_ERR_DEG = 2.5
 GATE_MAX_ROT_ERR_DEG = 8.0
+# bench.py GATE_2K_*_CORRECT
+GATE_2K_MED_ROT_ERR_CORRECT = 0.3
+GATE_2K_MAX_ROT_ERR_CORRECT = 1.0
+# bench.py's 512x1024 gates (GATE_MIN_MATCHES .. GATE_MAX_ROT_ERR_CORRECT)
+GATE_512 = dict(min_matches=40, max_outlier_pct=10.0, max_trim_err_deg=1.0,
+                compat=(2.5, 11.5), corrected=(0.2, 0.5))
+# bench.py's pitch-cell gates at pitch 60 (GATE_CELL_*)
+GATE_CELL_MIN_MATCHES = 10
+GATE_CELL_MAX_OUTLIER_PCT = 25.0
+GATE_CELL_MAX_ROT_ERR_DEG = 1.0
 N_PAIRS_2K = 4
+N_PAIRS_512 = 4
+N_PAIRS_PITCH = 2
 SIZE_2K = (1024, 2048)
 SIZE_512 = (512, 1024)
 SEED = 42
+PITCH_SEED = 77
+
+
+def corrected_mode(cfg):
+    """bench.corrected_mode on the port's config: per-match depths, outlier
+    gates, the joint Schur polish, 4 starts and 240 RANSAC trials."""
+    return dataclasses.replace(
+        cfg,
+        ba=dataclasses.replace(cfg.ba, reference_compat=False, joint_refine=True,
+                               outlier_reject=True, multi_start=4),
+        ransac=dataclasses.replace(cfg.ransac, num_trials=240),
+    )
 
 
 class PhaseError(RuntimeError):
@@ -172,6 +208,14 @@ def phase_kernels(dev):
     left, right, _ = make_pair(0, *SIZE_2K, dev)
     bands = frontend.crop_bands(left, right, CFG_2K, CFG_2K.frontend.band_pitches_deg)
     ii = integral.integral_image(bands)  # (8, 257, 2049)
+    ii64 = torch.cumsum(torch.cumsum(bands.double(), dim=-2), dim=-1)
+    max_abs = ii64.abs().max().item()
+    err = (ii[:, 1:, 1:].double() - ii64).abs().max().item()
+    # the bound that test_torch_surf.py's det tolerance assumes of each package
+    ii_bound = 2 * float(np.finfo(np.float32).eps) * max_abs
+    log("integral_image", shape=list(ii.shape), max_abs=max_abs, max_abs_err_vs_float64=err,
+        cpu_test_bound=ii_bound, within_cpu_test_bound=err <= ii_bound)
+    del ii64
     scfg = CFG_2K.surf
     rows = []
     no_library = dict(library_ms=None, library="no single PyTorch call computes it")
@@ -314,15 +358,115 @@ def phase_slice(dev):
     return counts
 
 
+LAUNCHED = (cuda_surf.DET_PYRAMID, cuda_surf.HAAR_TRACE, cuda_match.TOP2)
+
+
+def run_counted(pairs, cfg, dev):
+    """One run_two_view per pair with every launch count set to 0 first;
+    returns ([(out, ms)], {kernel symbol: launches})."""
+    for k in LAUNCHED:
+        k.launches = 0
+    results = [run_pair(l, r, cfg, dev, seed=i) for i, (l, r, _) in enumerate(pairs)]
+    counts = {k.symbol: k.launches for k in LAUNCHED}
+    require(all(c > 0 for c in counts.values()), f"a kernel of the path never launched: {counts}")
+    return results, counts
+
+
+def accuracy(results, pairs, cfg, height, width):
+    """Per pair: matches, outlier % and 10%-trimmed error (deg) through
+    the port's evaluate_matches, and the rotation error (deg, host f64)."""
+    rows = []
+    for (out, _), (_, _, R) in zip(results, pairs):
+        check_output(out, cfg)
+        fr = frontend.FrontendResult(out.left_xy, out.right_xy, out.match_valid,
+                                     out.match_distance, out.total_keypoints)
+        ev = evaluation.evaluate_matches(fr, torch.as_tensor(R, dtype=torch.float32,
+                                                             device=out.left_xy.device),
+                                         width, height, cfg)
+        rows.append(dict(matches=int(ev.num_matches), outlier_pct=float(ev.outlier_pct),
+                         trim_err_deg=math.degrees(float(ev.trimmed_mean_err_rad)),
+                         rot_err_deg=rot_err_deg_host(out.rotation_aa.cpu().numpy(), R)))
+    return {k: [r[k] for r in rows] for k in rows[0]}
+
+
+def starts(results):
+    return dict(start=[int(o.telemetry.start) for o, _ in results],
+                rot_dominant=[bool(o.telemetry.rot_dominant) for o, _ in results])
+
+
+def phase_2k_corrected(dev):
+    """The 2K slice's 4 pairs in corrected mode, against the bench's 2K
+    corrected gates."""
+    h, w = SIZE_2K
+    cfg = corrected_mode(CFG_2K)
+    pairs = [make_pair(i, h, w, dev) for i in range(N_PAIRS_2K)]
+    run_pair(pairs[0][0], pairs[0][1], cfg, dev, seed=0)  # warm-up
+    results, counts = run_counted(pairs, cfg, dev)
+    acc = accuracy(results, pairs, cfg, h, w)
+    ms = [t for _, t in results]
+    log("slice_2k_corrected", pairs=N_PAIRS_2K, launches=counts, **acc, **starts(results),
+        pair_ms=ms, median_pair_ms=float(np.median(ms)))
+    errs = acc["rot_err_deg"]
+    require(np.mean(acc["matches"]) >= GATE_MIN_MATCHES, f"mean matches {np.mean(acc['matches'])}")
+    require(np.mean(acc["outlier_pct"]) <= GATE_MAX_OUTLIER_PCT,
+            f"mean outlier% {np.mean(acc['outlier_pct'])} > {GATE_MAX_OUTLIER_PCT}")
+    require(np.median(errs) <= GATE_2K_MED_ROT_ERR_CORRECT, f"median rot err {np.median(errs)} deg")
+    require(max(errs) <= GATE_2K_MAX_ROT_ERR_CORRECT, f"max rot err {max(errs)} deg")
+    return counts
+
+
 def phase_512(dev):
-    left, right, R = make_pair(0, *SIZE_512, dev)
-    run_pair(left, right, CFG_512, dev, seed=0)  # warm-up
-    out, ms = run_pair(left, right, CFG_512, dev, seed=0)
-    check_output(out, CFG_512)
-    n = int(out.num_matches)
-    log("pair_512x1024", matches=n, pair_ms=ms,
-        rot_err_deg=rot_err_deg_host(out.rotation_aa.cpu().numpy(), R))
-    require(n >= GATE_MIN_MATCHES, f"512x1024 matches {n} < {GATE_MIN_MATCHES}")
+    """4 pairs under the 512 bench config, compat and corrected, against
+    the bench's 512 gates (its medians are over 16 pairs, these over 4)."""
+    h, w = SIZE_512
+    pairs = [make_pair(i, h, w, dev) for i in range(N_PAIRS_512)]
+    counts = {}
+    for mode, cfg in (("compat", CFG_512), ("corrected", corrected_mode(CFG_512))):
+        run_pair(pairs[0][0], pairs[0][1], cfg, dev, seed=0)  # warm-up
+        results, counts[mode] = run_counted(pairs, cfg, dev)
+        acc = accuracy(results, pairs, cfg, h, w)
+        ms = [t for _, t in results]
+        med_gate, max_gate = GATE_512[mode]
+        errs = acc["rot_err_deg"]
+        log("pair_512x1024", mode=mode, pairs=N_PAIRS_512, launches=counts[mode], **acc,
+            **starts(results), pair_ms=ms, median_pair_ms=float(np.median(ms)),
+            note=f"median over {N_PAIRS_512} pairs (the bench takes it over 16)")
+        require(np.mean(acc["matches"]) >= GATE_512["min_matches"],
+                f"512x1024 {mode}: mean matches {np.mean(acc['matches'])}")
+        require(np.mean(acc["outlier_pct"]) <= GATE_512["max_outlier_pct"],
+                f"512x1024 {mode}: mean outlier% {np.mean(acc['outlier_pct'])}")
+        require(np.mean(acc["trim_err_deg"]) <= GATE_512["max_trim_err_deg"],
+                f"512x1024 {mode}: mean trimmed error {np.mean(acc['trim_err_deg'])} deg")
+        require(np.median(errs) <= med_gate, f"512x1024 {mode}: median rot err {np.median(errs)} deg")
+        require(max(errs) <= max_gate, f"512x1024 {mode}: max rot err {max(errs)} deg")
+    return counts
+
+
+def phase_pitch60(dev):
+    """2 pairs at pitch 60 +- 1.5 deg (roll and yaw U(-3, 3) deg, as the
+    bench's pitch cells draw them) under the default auto band ladder in
+    corrected mode, against the bench's pitch-cell gates."""
+    h, w = SIZE_512
+    cfg = corrected_mode(dataclasses.replace(CFG_512, frontend=FrontendConfig()))
+    rng = np.random.default_rng(PITCH_SEED)
+    eulers = np.stack([rng.uniform(-3, 3, N_PAIRS_PITCH),
+                       60.0 + rng.uniform(-1.5, 1.5, N_PAIRS_PITCH),
+                       rng.uniform(-3, 3, N_PAIRS_PITCH)], axis=1)
+    pairs = []
+    for i, e in enumerate(np.deg2rad(eulers).astype(np.float32)):
+        params = synthetic.texture_params_from_numpy(np.random.default_rng(PITCH_SEED + i))
+        left, right, R = synthetic.rotation_pair(params, e, h, w, dev)
+        pairs.append((left, right, R.cpu().numpy().astype(np.float64)))
+    results, counts = run_counted(pairs, cfg, dev)
+    acc = accuracy(results, pairs, cfg, h, w)
+    log("pitch60_corrected", pairs=N_PAIRS_PITCH, euler_deg=eulers.tolist(), launches=counts,
+        **acc, **starts(results), pair_ms=[t for _, t in results])
+    require(np.mean(acc["matches"]) >= GATE_CELL_MIN_MATCHES, f"pitch 60: mean matches {acc['matches']}")
+    require(np.mean(acc["outlier_pct"]) <= GATE_CELL_MAX_OUTLIER_PCT,
+            f"pitch 60: mean outlier% {np.mean(acc['outlier_pct'])}")
+    require(max(acc["rot_err_deg"]) <= GATE_CELL_MAX_ROT_ERR_DEG,
+            f"pitch 60: max rot err {max(acc['rot_err_deg'])} deg")
+    return counts
 
 
 def main():
@@ -330,10 +474,14 @@ def main():
     phase_build()
     rows = phase_kernels(dev)
     counts = phase_slice(dev)
-    phase_512(dev)
+    by_phase = {"slice_2k_corrected": (phase_2k_corrected(dev), N_PAIRS_2K)}
+    for mode, c in phase_512(dev).items():
+        by_phase[f"pair_512x1024_{mode}"] = (c, N_PAIRS_512)
+    by_phase["pitch60_corrected"] = (phase_pitch60(dev), N_PAIRS_PITCH)
     for r, sym in zip(rows, ("sba_det_pyramid", "sba_haar_trace", "sba_top2")):
         r["launches"] = counts[sym]
         r["launches_per_pair"] = counts[sym] / N_PAIRS_2K
+        r["launches_per_pair_by_phase"] = {k: c[sym] / n for k, (c, n) in by_phase.items()}
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,5 @@
-"""Closed-form small-matrix linear algebra (2x2 and 3x3 blocks).
+"""Small-matrix linear algebra: closed forms for 2x2 and 3x3 blocks, and a
+Cholesky solve for the small PSD systems of the joint solve.
 
 Counterpart of the closed forms in spherical_bundle_adjuster_tpu/core/
 smallmat.py. Adjugate and Cramer forms are elementwise arithmetic over
@@ -74,3 +75,15 @@ def solve3(A, b):
     """Solve (..., 3, 3) x = (..., 3) via adjugate: x_i = sum_j cof[j, i] b_j / det."""
     cof = _cofactor3(A)
     return torch.einsum("...ji,...j->...i", cof, b) / det3(A)[..., None]
+
+
+def solve_psd(A, b):
+    """Solve a small symmetric positive-definite (..., n, n) x = (..., n) by
+    Cholesky and two triangular solves. Where A is not positive definite
+    the solution is NaN, as XLA's Cholesky gives it (the joint solve
+    rejects a NaN step by its cost test); `cholesky_ex` neither raises nor
+    syncs the host."""
+    L, info = torch.linalg.cholesky_ex(A)
+    y = torch.linalg.solve_triangular(L, b[..., None], upper=False)
+    x = torch.linalg.solve_triangular(L.transpose(-1, -2), y, upper=True)[..., 0]
+    return torch.where((info == 0)[..., None], x, torch.nan)

@@ -5,14 +5,18 @@ pose out), ported from spherical_bundle_adjuster_tpu/models/twoview.py.
 Stages:
   1. band front-end                         -> matched ERP pixel pairs
   2. pixel -> unit-bearing lifting          -> (M, 3) bearing banks
-  3. consensus 8-point initial guess
+  3. consensus 8-point initial guess (the top k and a Kabsch rotation-only
+     start with BaConfig.multi_start = k in corrected mode)
   4. depth init + the reference's init quirks (reference_compat)
-  5. block-coordinate descent d -> rot -> tran
+  5. block-coordinate descent d -> rot -> tran; in corrected mode with
+     epipolar and reprojection outlier gates, a joint Schur polish, and
+     the winning start chosen by its trimmed residual (or by its
+     rotation-only residual when a pure rotation explains the matches)
 
-This slice ports the reference-compat single-winner path. Corrected mode
-(reference_compat=False, outlier gates, joint Schur polish, multi-start)
-and the batched entry point raise NotImplementedError until the next
-slice ports them (ROADMAP queue 1).
+The k starts run as one batch through every stage (a leading start axis
+in solver/lm), as the reference vmapped them. The batched entry point
+raises NotImplementedError until a later slice ports it (ROADMAP
+queue 1).
 """
 
 from __future__ import annotations
@@ -27,16 +31,19 @@ from ..solver import epipolar, lm
 from ..utils.config import PipelineConfig
 from .frontend import FRONTENDS, FrontendResult
 
-_NEXT_SLICE = "is not ported yet; it lands with corrected mode (ROADMAP queue 1, next slice)"
-
 
 class SolverTelemetry(NamedTuple):
-    """Per-BCD-stage convergence telemetry; each field is an
-    lm.StageReport whose fields are shaped (bcd_rounds,)."""
+    """Per-BCD-stage convergence telemetry of the final solve of the
+    winning start; each of depth / rot / tran is an lm.StageReport whose
+    fields are shaped (bcd_rounds,). `start` is the winning start's index
+    (0 with one start) and `rot_dominant` whether the rotation-dominant
+    selection chose it."""
 
     depth: lm.StageReport
     rot: lm.StageReport
     tran: lm.StageReport
+    start: torch.Tensor
+    rot_dominant: torch.Tensor
 
 
 class TwoViewResult(NamedTuple):
@@ -56,18 +63,6 @@ class TwoViewResult(NamedTuple):
     telemetry: SolverTelemetry
 
 
-def _check_supported(cfg: PipelineConfig):
-    ba = cfg.ba
-    if not ba.reference_compat:
-        raise NotImplementedError(f"BaConfig.reference_compat=False {_NEXT_SLICE}")
-    if ba.outlier_reject:
-        raise NotImplementedError(f"BaConfig.outlier_reject {_NEXT_SLICE}")
-    if ba.joint_refine:
-        raise NotImplementedError(f"BaConfig.joint_refine (solve_joint_schur) {_NEXT_SLICE}")
-    if ba.multi_start:
-        raise NotImplementedError(f"BaConfig.multi_start (initial_guess_topk) {_NEXT_SLICE}")
-
-
 def lift_matches(fr: FrontendResult, width, height):
     """Matched ERP pixels -> unit bearing banks."""
     return (
@@ -77,41 +72,88 @@ def lift_matches(fr: FrontendResult, width, height):
 
 
 def _pred_angular_residual(b_left, b_right, r, t, d):
-    """Per-match angle between b_right and the reprojected left ray."""
-    pred = rotation.rotate_angle_axis(r.expand(b_left.shape), b_left * d[:, 0:1]) - t
+    """Per-match angle between b_right and the reprojected left ray, for
+    r, t (..., 3) and d (..., M, 2): (..., M)."""
+    x1 = b_left * d[..., 0:1]
+    pred = rotation.rotate_angle_axis(r[..., None, :].expand(x1.shape), x1) - t[..., None, :]
     pred = pred / torch.clamp(torch.linalg.vector_norm(pred, dim=-1, keepdim=True), min=1e-12)
-    return sphere.angular_distance(pred, b_right)
+    return sphere.angular_distance(pred, b_right.expand(pred.shape))
 
 
 def _trimmed_mean_masked(x, valid, keep_frac=0.8):
-    """Mean of the smallest keep_frac of x over valid slots."""
-    n = torch.sum(valid.to(torch.int32))
-    xs = torch.sort(torch.where(valid, x, torch.inf)).values
+    """Mean of the smallest keep_frac of x (..., M) over valid slots."""
+    n = torch.sum(valid.to(torch.int32), dim=-1)
+    xs = torch.sort(torch.where(valid, x, torch.inf), dim=-1).values
     hi = torch.clamp(torch.floor(keep_frac * n.to(torch.float32)).to(torch.int64), min=1)
-    keep = torch.arange(x.shape[0], device=x.device) < hi
-    return torch.sum(torch.where(keep & torch.isfinite(xs), xs, 0.0)) / hi.to(torch.float32)
+    keep = torch.arange(x.shape[-1], device=x.device) < hi[..., None]
+    kept = torch.where(keep & torch.isfinite(xs), xs, 0.0)
+    return torch.sum(kept, dim=-1) / hi.to(torch.float32)
 
 
-def _solve_from_init(b_left, b_right, match_valid, euler0, t0, ok, cfg, init_d):
-    """Compat refinement from one consensus candidate: BCD rounds of
-    d -> rot -> tran. Returns (r, t, d, residual score, telemetry)."""
+def _solve_from_init(b_left, b_right, base_valid, euler0, t0, ok, cfg, init_d):
+    """The refinement from consensus candidates euler0, t0 (..., 3), ...
+    empty or one start axis: the stage-1 epipolar gate, BCD rounds of
+    d -> rot -> tran, the iterated stage-2 reprojection gates each
+    followed by a BCD re-solve from the init, and the joint Schur polish,
+    as cfg.ba asks. Returns (r, t, d, score, (depth, rot, tran) reports):
+    score is the 20%-trimmed mean angular residual over the pre-gate
+    matches, the multi-start criterion."""
     ba = cfg.ba
-    # Quirk (reference :330): the negated Euler consensus vector is used
-    # directly as the angle-axis init.
-    r0 = -euler0
-    r, t, d = r0, t0, init_d
-    reps = []
-    for _ in range(ba.bcd_rounds):
-        d, rep_d = lm.solve_depths(b_left, b_right, d, r, t, match_valid, ba)
-        # Quirk (:941-942, :998-999): every rot / tran residual uses the
-        # first two matches' LEFT depths as (d1, d2).
-        d_pair = torch.stack([d[0, 0], d[1, 0]])
-        r, rep_r = lm.solve_rotation(b_left, b_right, d_pair, r, t, match_valid, ba)
-        t, rep_t = lm.solve_translation(b_left, b_right, d_pair, r, t, match_valid, ba)
-        reps.append((rep_d, rep_r, rep_t))
+    lead = euler0.shape[:-1]
+    base_valid = base_valid.expand(lead + base_valid.shape)
+    init_d = init_d.expand(lead + init_d.shape)
+    match_valid = base_valid
+    thresh = math.radians(ba.outlier_thresh_deg)
+    if ba.outlier_reject:
+        # Stage-1 gate: each candidate's epipolar residuals, trusted only
+        # when a consensus pose exists.
+        gated = epipolar.epipolar_inlier_mask(b_left, b_right, match_valid, euler0, t0,
+                                              thresh, min_keep=ba.outlier_min_keep)
+        match_valid = torch.where(ok, gated, match_valid)
 
+    if ba.reference_compat:
+        # Quirk (reference :330): the negated Euler consensus vector is used
+        # directly as the angle-axis init.
+        r0 = -euler0
+    else:
+        # The 8-point decomposition recovers R^T, so the exact init inverts
+        # the consensus rotation.
+        r0 = -rotation.euler_to_angle_axis(euler0)
+
+    def run_bcd(valid_mask):
+        r, t, d = r0, t0, init_d
+        reps = []
+        for _ in range(ba.bcd_rounds):
+            d, rep_d = lm.solve_depths(b_left, b_right, d, r, t, valid_mask, ba)
+            if ba.reference_compat:
+                # Quirk (:941-942, :998-999): every rot / tran residual uses
+                # the first two matches' LEFT depths as (d1, d2).
+                d_pair = torch.stack([d[..., 0, 0], d[..., 1, 0]], dim=-1)
+            else:
+                d_pair = d
+            r, rep_r = lm.solve_rotation(b_left, b_right, d_pair, r, t, valid_mask, ba)
+            t, rep_t = lm.solve_translation(b_left, b_right, d_pair, r, t, valid_mask, ba)
+            reps.append((rep_d, rep_r, rep_t))
+        return r, t, d, reps
+
+    r, t, d, reps = run_bcd(match_valid)
+    if ba.outlier_reject:
+        # Stage-2 gates: residuals against the refined pose, then a re-solve
+        # on the cleaner set; each round's sharper pose exposes more.
+        for _ in range(ba.outlier_rounds):
+            ang = _pred_angular_residual(b_left, b_right, r, t, d)
+            gated = epipolar.residual_inlier_mask(ang, match_valid, thresh,
+                                                  min_keep=ba.outlier_min_keep)
+            match_valid = torch.where(ok, gated, match_valid)
+            r, t, d, reps = run_bcd(match_valid)
+
+    if ba.joint_refine:
+        r, t, d, _ = lm.solve_joint_schur(b_left, b_right, d, r, t, match_valid, ba)
+
+    # over the pre-gate matches: a start must not win by gating away the
+    # matches it cannot explain
     ang = _pred_angular_residual(b_left, b_right, r, t, d)
-    score = _trimmed_mean_masked(ang, match_valid, keep_frac=0.8)
+    score = _trimmed_mean_masked(ang, base_valid, keep_frac=0.8)
 
     # Without a consensus initial guess the solve is discarded: report the
     # init pose and mask the telemetry (0 iterations, NaN costs).
@@ -119,31 +161,73 @@ def _solve_from_init(b_left, b_right, match_valid, euler0, t0, ok, cfg, init_d):
     t = torch.where(ok, t, t0)
     d = torch.where(ok, d, init_d)
 
-    def stage(i):  # stack one stage's reports over the BCD rounds
+    def stage(i):  # one stage's reports over the BCD rounds: (..., bcd_rounds)
         fields = zip(*(rs[i] for rs in reps))
-        return lm.StageReport(*(torch.where(ok, f, _masked(f)) for f in map(torch.stack, fields)))
+        return lm.StageReport(*(torch.where(ok, f, _masked(f))
+                                for f in (torch.stack(x, dim=-1) for x in fields)))
 
-    return r, t, d, score, SolverTelemetry(stage(0), stage(1), stage(2))
+    return r, t, d, score, (stage(0), stage(1), stage(2))
 
 
 def _masked(x):
     return torch.full_like(x, math.nan) if x.is_floating_point() else torch.zeros_like(x)
 
 
+def _select_start(b_left, b_right, match_valid, rs, scores, ba):
+    """The winning start of a multi-start solve: the lowest score, unless
+    some start explains the matches as a pure rotation to a median
+    residual below max(rot_dominant_select_deg, 1.5 x the best score),
+    capped at 3 deg; then the start of lowest rotation-only median.
+    Returns (index, whether the rotation-only criterion chose it)."""
+    win = torch.argmin(scores)
+    if ba.rot_dominant_select_deg <= 0:
+        return win, torch.zeros((), dtype=torch.bool, device=win.device)
+    shape = rs.shape[:-1] + b_left.shape
+    pred = rotation.rotate_angle_axis(rs[:, None, :].expand(shape), b_left.expand(shape))
+    mr = epipolar.masked_median(sphere.angular_distance(pred, b_right.expand(shape)), match_valid)
+    thresh = torch.clamp(torch.clamp(1.5 * torch.amin(scores),
+                                     min=math.radians(ba.rot_dominant_select_deg)),
+                         max=math.radians(3.0))
+    rot_dom = torch.amin(mr) < thresh
+    return torch.where(rot_dom, torch.argmin(mr), win), rot_dom
+
+
 def adjust_from_matches(b_left, b_right, match_valid, generator,
                         cfg: PipelineConfig = PipelineConfig(), init_depth=None,
                         gumbel=None):
     """Initial guess + BCD refinement given lifted matched bearings.
+
+    With cfg.ba.multi_start = k > 0 in corrected mode, the top-k
+    consensus candidates (the last one the Kabsch rotation-only start)
+    are refined as one batch and the best start wins (_select_start).
     gumbel: optional (num_trials, M) RANSAC draws (else drawn from
-    `generator`). Returns (r, t, d, InitialGuess, SolverTelemetry)."""
-    _check_supported(cfg)
+    `generator`). Returns (r, t, d, InitialGuess, SolverTelemetry).
+    """
     ba = cfg.ba
     d0 = ba.init_depth if init_depth is None else init_depth
-    init_d = torch.full((b_left.shape[0], 2), d0, dtype=torch.float32, device=b_left.device)
+    dev = b_left.device
+    init_d = torch.full((b_left.shape[0], 2), d0, dtype=torch.float32, device=dev)
+
+    if ba.multi_start and not ba.reference_compat:
+        e_k, t_k, ok = epipolar.initial_guess_topk(b_left, b_right, match_valid, generator,
+                                                   cfg.ransac, ba.multi_start, gumbel)
+        rs, ts, ds, scores, reps = _solve_from_init(b_left, b_right, match_valid, e_k, t_k,
+                                                    ok, cfg, init_d)
+        win, rot_dom = _select_start(b_left, b_right, match_valid, rs, scores, ba)
+        guess = epipolar.InitialGuess(
+            euler=e_k[win], translation=t_k[win],
+            num_candidates=torch.tensor(ba.multi_start, device=dev), ok=ok,
+        )
+        tel = SolverTelemetry(*(lm.StageReport(*(f[win] for f in rep)) for rep in reps),
+                              start=win, rot_dominant=rot_dom)
+        return rs[win], ts[win], ds[win], guess, tel
+
     guess = epipolar.initial_guess(b_left, b_right, match_valid, generator, cfg.ransac, gumbel)
-    r, t, d, _, tel = _solve_from_init(
+    r, t, d, _, reps = _solve_from_init(
         b_left, b_right, match_valid, guess.euler, guess.translation, guess.ok, cfg, init_d
     )
+    tel = SolverTelemetry(*reps, start=torch.zeros((), dtype=torch.int64, device=dev),
+                          rot_dominant=torch.zeros((), dtype=torch.bool, device=dev))
     return r, t, d, guess, tel
 
 
@@ -156,7 +240,6 @@ def run_two_view(im_left, im_right, generator, cfg: PipelineConfig = PipelineCon
         raise NotImplementedError(
             f"frontend={frontend!r} is not ported yet (ROADMAP queue 1); use 'band'"
         )
-    _check_supported(cfg)
     h, w = im_left.shape[0], im_left.shape[1]
     fr = FRONTENDS[frontend](im_left, im_right, cfg)
     b_left, b_right = lift_matches(fr, w, h)

@@ -1,18 +1,22 @@
-"""Batched essential-matrix estimation and the consensus initial guess.
+"""Batched essential-matrix estimation, the consensus initial guess and
+the outlier gates: spherical_bundle_adjuster_tpu/solver/epipolar.py.
 
-The single-winner half of spherical_bundle_adjuster_tpu/solver/
-epipolar.py: all RANSAC trials run as one batch (a trial axis written
-out where the reference vmapped). Each trial weights a uniform 25%
-subsample of the valid matches (Gumbel top-n), takes the null vector of
-the 9x9 normal matrix by Cholesky inverse iteration, factors it with one
-3x3 SVD and decomposes it into (R1, R2, t). The winner minimizes the
-20-80%-trimmed mean distance to all other candidate Euler vectors; a
-cheirality vote fixes the sign of t.
+All RANSAC trials run as one batch (a trial axis written out where the
+reference vmapped). Each trial weights a uniform 25% subsample of the
+valid matches (Gumbel top-n), takes the null vector of the 9x9 normal
+matrix by Cholesky inverse iteration, factors it with one 3x3 SVD and
+decomposes it into (R1, R2, t). The winner minimizes the 20-80%-trimmed
+mean distance to all other candidate Euler vectors, or, with
+scoring="inlier_count", maximizes its epipolar inlier count; a
+cheirality vote fixes the sign of t. `initial_guess_topk` keeps the k
+best candidates and a Kabsch rotation-only start for multi-start
+refinement, and the gates (`epipolar_inlier_mask`,
+`residual_inlier_mask`) take a leading start axis.
 
-torch cannot reproduce jax.random.gumbel, so `ransac_trials` and
-`initial_guess` take an optional (num_trials, M) Gumbel tensor; parity
-tests feed them the reference's draws. Without one, the draws come from
-the given torch.Generator.
+torch cannot reproduce jax.random.gumbel, so `ransac_trials`,
+`initial_guess` and `initial_guess_topk` take an optional
+(num_trials, M) Gumbel tensor; parity tests feed them the reference's
+draws. Without one, the draws come from the given torch.Generator.
 
 Constraint convention: row_i = flatten(outer(b_left_i, b_right_i)), i.e.
 b_left^T E b_right = 0.
@@ -20,6 +24,7 @@ b_left^T E b_right = 0.
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -168,20 +173,98 @@ def ransac_trials(b_left, b_right, match_valid, generator, cfg: RansacConfig,
     return euler.reshape(-1, 3), t.reshape(-1, 3), valid
 
 
+def candidate_inlier_counts(b_left, b_right, match_valid, eulers, ts, thresh_rad):
+    """(C,) int32: per candidate (eulers, ts (C, 3)), the valid matches
+    whose angular epipolar residual against E_c = [t_c]x R_c is at most
+    thresh_rad."""
+    E = rotation.skew(ts) @ rotation.euler_to_matrix(eulers)  # (C, 3, 3)
+    n = torch.einsum("cik,mk->cmi", E, b_right)  # (C, M, 3)
+    n_norm = torch.linalg.vector_norm(n, dim=-1)
+    sin_res = torch.abs(torch.einsum("mi,cmi->cm", b_left, n)) / torch.clamp(n_norm, min=1e-12)
+    ok = (sin_res <= math.sin(thresh_rad)) & match_valid[None, :]
+    return torch.sum(ok.to(torch.int32), dim=-1)
+
+
+def masked_median(x, valid):
+    """Median of x (..., M) over its valid slots (the lower middle for an
+    even count): (...,). valid broadcasts against x."""
+    valid = valid.expand(x.shape)
+    n = torch.sum(valid.to(torch.int64), dim=-1)
+    xs = torch.sort(torch.where(valid, x, torch.inf), dim=-1).values
+    mid = torch.clamp(torch.div(n - 1, 2, rounding_mode="floor"), 0, x.shape[-1] - 1)
+    return torch.gather(xs, -1, mid[..., None])[..., 0]
+
+
+def residual_inlier_mask(residual, match_valid, thresh_rad: float, k_med: float = 3.0,
+                         min_keep: int = 9):
+    """Adaptive gate over (..., M) residuals: keep the valid matches at most
+    max(thresh_rad, k_med * median residual); where fewer than min_keep
+    survive, the mask is returned unchanged."""
+    med = masked_median(residual, match_valid)
+    thr = torch.clamp(k_med * med, min=thresh_rad)
+    gated = match_valid & (residual <= thr[..., None])
+    enough = torch.sum(gated.to(torch.int32), dim=-1) >= min_keep
+    return torch.where(enough[..., None], gated, match_valid)
+
+
+def epipolar_inlier_mask(b_left, b_right, match_valid, euler, translation,
+                         thresh_rad: float, k_med: float = 3.0, min_keep: int = 9):
+    """match_valid (..., M) gated by the angular epipolar residual
+    asin(|b_l . n| / |n|), n = E b_r, E = [t]x R(euler), of the pose
+    (euler, translation) (..., 3); matches near the epipole (|n| < 1e-6)
+    get residual 0."""
+    E = rotation.skew(translation) @ rotation.euler_to_matrix(euler)
+    n = torch.einsum("...ij,mj->...mi", E, b_right)
+    n_norm = torch.linalg.vector_norm(n, dim=-1)
+    sin_res = torch.abs(torch.sum(b_left * n, dim=-1)) / torch.clamp(n_norm, min=1e-12)
+    sin_res = torch.where(n_norm < 1e-6, 0.0, sin_res)
+    ang = torch.arcsin(torch.clamp(sin_res, 0.0, 1.0))
+    return residual_inlier_mask(ang, match_valid, thresh_rad, k_med, min_keep)
+
+
+def kabsch_rotation_hypothesis(b_left, b_right, match_valid, n_irls: int = 2):
+    """Rotation-only start: the rotation maximizing sum w_i b_r . (R b_l)
+    (orthogonal Procrustes) with n_irls Cauchy reweighting rounds.
+    Returns (euler (3,) of R^T, the candidate banks' convention; ok = at
+    least 3 valid matches)."""
+
+    def fit(w):
+        c = torch.einsum("m,mi,mj->ij", w, b_right, b_left)
+        u, _, vt = torch.linalg.svd(c)
+        d = torch.sign(torch.linalg.det(u) * torch.linalg.det(vt))
+        return (u * torch.stack([torch.ones_like(d), torch.ones_like(d), d])[None, :]) @ vt
+
+    valid_f = match_valid.to(torch.float32)
+    w = valid_f
+    for _ in range(n_irls):
+        R = fit(w)
+        cosang = torch.clamp(torch.sum((b_left @ R.T) * b_right, dim=-1), -1.0, 1.0)
+        ang = torch.arccos(cosang)
+        scale = torch.clamp(1.5 * masked_median(ang, match_valid), min=math.radians(0.05))
+        w = valid_f / (1.0 + (ang / scale) ** 2)
+    euler = rotation.matrix_to_euler(fit(w).T)
+    return euler, torch.sum(match_valid.to(torch.int32)) >= 3
+
+
 def initial_guess(b_left, b_right, match_valid, generator,
                   cfg: RansacConfig = RansacConfig(), gumbel=None) -> InitialGuess:
     """Consensus relative-pose initial guess over all matches.
 
     b_left / b_right: (M, 3) bearing banks (padded); match_valid: (M,).
     """
-    if cfg.scoring != "trimmed_mode":
-        raise NotImplementedError(
-            f"RansacConfig.scoring={cfg.scoring!r} is not ported yet; it lands "
-            "with corrected mode (ROADMAP queue 1, next slice)"
-        )
     euler, t, valid = ransac_trials(b_left, b_right, match_valid, generator, cfg, gumbel)
     score, n_cand = consensus_scores(euler, valid, cfg.trim_lo, cfg.trim_hi)
-    win = torch.argmin(score)
+    if cfg.scoring == "inlier_count":
+        counts = candidate_inlier_counts(b_left, b_right, match_valid, euler, t,
+                                         math.radians(cfg.inlier_thresh_deg))
+        counts = torch.where(valid, counts, -1)
+        # most epipolar inliers first; the trimmed-mode score, scaled into
+        # [0, 1), breaks ties and never outranks one inlier
+        tie = torch.clamp(score / (torch.amax(torch.where(valid, score, 0.0)) + 1e-6), 0.0, 1.0)
+        tie = torch.where(torch.isfinite(tie), tie, 1.0)
+        win = torch.argmax(counts.to(torch.float32) - 0.5 * tie)
+    else:
+        win = torch.argmin(score)
     ok = n_cand > 0
     e_win = euler[win]
     t_win = t[win]
@@ -193,3 +276,42 @@ def initial_guess(b_left, b_right, match_valid, generator,
         num_candidates=n_cand,
         ok=ok,
     )
+
+
+def k_smallest(score, k: int):
+    """Indices of the k smallest scores, ties toward the lower index (the
+    order of the reference's lax.top_k(-score, k); torch.topk promises no
+    tie order)."""
+    return torch.sort(score, stable=True).indices[:k]
+
+
+def initial_guess_topk(b_left, b_right, match_valid, generator,
+                       cfg: RansacConfig = RansacConfig(), k: int = 4, gumbel=None):
+    """The k best consensus candidates (ascending trimmed-mode score, the
+    lower index first on ties) as multi-start inits; with
+    cfg.rotation_hypothesis the last slot holds the Kabsch rotation-only
+    start with t = 0 instead. Slots past the candidate count repeat the
+    best one. Returns (eulers (k, 3), translations (k, 3), ok)."""
+    euler, t, valid = ransac_trials(b_left, b_right, match_valid, generator, cfg, gumbel)
+    score, n_cand = consensus_scores(euler, valid, cfg.trim_lo, cfg.trim_hi)
+    order = k_smallest(score, k)
+    ok = n_cand > 0
+    slot_ok = torch.arange(k, device=score.device) < n_cand
+    idx = torch.where(slot_ok, order, order[0])
+    e_sel = euler[idx]
+    t_sel = t[idx]
+    if cfg.cheirality:
+        t_sel = torch.vmap(
+            lambda e, tt: resolve_translation_sign(b_left, b_right, match_valid, e, tt)
+        )(e_sel, t_sel)
+    e_k = torch.where(ok, e_sel, torch.zeros_like(e_sel))
+    t_k = torch.where(ok, t_sel, torch.tensor([1.0, 0.0, 0.0], device=t_sel.device))
+    if cfg.rotation_hypothesis and k >= 2:
+        # usable without any consensus candidate: pure rotation can leave
+        # every 8-point trial invalid
+        e_rot, rot_ok = kabsch_rotation_hypothesis(b_left, b_right, match_valid)
+        last = torch.arange(k, device=e_k.device)[:, None] == k - 1
+        e_k = torch.where(last & rot_ok, e_rot, e_k)
+        t_k = torch.where(last & rot_ok, 0.0, t_k)
+        ok = ok | rot_ok
+    return e_k, t_k, ok

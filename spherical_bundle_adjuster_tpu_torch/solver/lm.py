@@ -1,6 +1,5 @@
-"""Levenberg-Marquardt engine for the spherical BA block-coordinate stages.
-
-The BCD half of spherical_bundle_adjuster_tpu/solver/lm.py:
+"""Levenberg-Marquardt engine for the spherical BA stages:
+spherical_bundle_adjuster_tpu/solver/lm.py.
 
   * residual (all stages): with X1 = d1*b1, X2 = d2*b2,
       res = X2 - (AngleAxis(r) @ X1 - t)    (3-vector per match)
@@ -11,6 +10,16 @@ The BCD half of spherical_bundle_adjuster_tpu/solver/lm.py:
   * rot / tran stages: 3 global parameters, Huber IRLS, closed-form
     Jacobians (d res / d t = I; d res / d r = R [x1]x J_r(r), the right
     Jacobian of SO(3)).
+  * joint mode (`solve_joint_schur`): (r, t, all d) Gauss-Newton with the
+    per-match 2x2 depth blocks marginalized into a 6x6 camera system, the
+    same closed-form Jacobians and the d-stage's barrier.
+
+Every stage takes an optional leading start axis: r, t (S, 3), depths
+(S, M, 2) and match masks (S, M) against one shared (M, 3) bearing bank,
+so the S starts of multi-start refinement run as one batch (the
+reference vmapped them). The depth stage then solves S*M 2x2 problems
+and the rotation and translation stages S 3-parameter problems, in one
+`lm_fixed` call each.
 
 `lm_fixed` runs a batch of independent problems. Each element stops at
 its own convergence or damping cap and keeps its state frozen from then
@@ -123,34 +132,41 @@ def solve_depths(b1, b2, d_init, r, t, match_valid, cfg: BaConfig):
     """Optimize per-match (d1, d2) with fixed (r, t).
 
     Residual is 5-dim: 3 reprojection + 2 barrier terms lambda*exp(-c*d_i),
-    no robust loss, bound d >= 0. d_init: (M, 2) -> ((M, 2), StageReport)
-    with iterations = max over valid matches and costs summed over valid
-    matches.
+    no robust loss, bound d >= 0. b1, b2: (M, 3); d_init: (..., M, 2); r, t:
+    (..., 3); match_valid: (..., M), with ... empty or one start axis.
+    Returns ((..., M, 2), StageReport) with, per start, iterations = max
+    over valid matches and costs summed over valid matches.
     """
     lam_b = cfg.barrier_lambda
     c_b = cfg.barrier_c
+    lead, m = match_valid.shape[:-1], match_valid.shape[-1]
+    # one 2x2 problem per (start, match): per-problem bearings and pose
+    bb1 = b1.expand(lead + b1.shape).reshape(-1, 3)
+    bb2 = b2.expand(lead + b2.shape).reshape(-1, 3)
+    rr = r[..., None, :].expand(lead + (m, 3)).reshape(-1, 3)
+    tt = t[..., None, :].expand(lead + (m, 3)).reshape(-1, 3)
     # The residual is linear in each depth: d rep / d (d1, d2) = [-R b1, b2],
-    # a constant (M, 3, 2) block, so its share of J^T J is built once; the
+    # a constant (N, 3, 2) block, so its share of J^T J is built once; the
     # barrier rows add a diagonal.
-    j_rep = torch.stack([-rotation.rotate_angle_axis(r.expand(b1.shape), b1), b2], dim=-1)
-    h_rep = j_rep.transpose(-1, -2) @ j_rep  # (M, 2, 2)
+    j_rep = torch.stack([-rotation.rotate_angle_axis(rr, bb1), bb2], dim=-1)
+    h_rep = j_rep.transpose(-1, -2) @ j_rep  # (N, 2, 2)
 
     def sys(d):
-        rep = reprojection_residual(b1, b2, d[:, 0], d[:, 1], r, t)  # (M, 3)
-        bar = lam_b * torch.exp(-c_b * d)  # (M, 2)
+        rep = reprojection_residual(bb1, bb2, d[:, 0], d[:, 1], rr, tt)  # (N, 3)
+        bar = lam_b * torch.exp(-c_b * d)  # (N, 2)
         j_bar = -c_b * bar  # diagonal of d bar / d d
         H = h_rep + torch.diag_embed(j_bar * j_bar)
         g = (j_rep.transpose(-1, -2) @ rep[..., None])[..., 0] + j_bar * bar
         cost = 0.5 * (torch.sum(rep * rep, dim=-1) + torch.sum(bar * bar, dim=-1))
         return cost, H, g
 
-    d_opt, reps = lm_fixed(sys, d_init, cfg, lower_bound=cfg.d_lower_bound)
-    d_out = torch.where(match_valid[:, None], d_opt, d_init)
+    d_opt, reps = lm_fixed(sys, d_init.reshape(-1, 2), cfg, lower_bound=cfg.d_lower_bound)
+    d_out = torch.where(match_valid[..., None], d_opt.reshape(d_init.shape), d_init)
     w = match_valid.to(torch.float32)
     report = StageReport(
-        iterations=torch.amax(torch.where(match_valid, reps.iterations, 0)),
-        initial_cost=torch.sum(reps.initial_cost * w),
-        final_cost=torch.sum(reps.final_cost * w),
+        iterations=torch.amax(torch.where(match_valid, reps.iterations.reshape(w.shape), 0), dim=-1),
+        initial_cost=torch.sum(reps.initial_cost.reshape(w.shape) * w, dim=-1),
+        final_cost=torch.sum(reps.final_cost.reshape(w.shape) * w, dim=-1),
     )
     return d_out, report
 
@@ -160,36 +176,43 @@ def solve_depths(b1, b2, d_init, r, t, match_valid, cfg: BaConfig):
 
 
 def _global_stage(param0, residual_and_jacobian, match_valid, cfg: BaConfig):
-    """LM over one 3-vector with per-match Huber-weighted 3-residual
-    blocks; residual_and_jacobian(p (3,)) -> (res (M, 3), J (M, 3, 3))."""
+    """LM over a 3-vector per start with per-match Huber-weighted
+    3-residual blocks. param0: (..., 3); residual_and_jacobian(p (..., 3))
+    -> (res (..., M, 3), J (..., M, 3, 3))."""
     w_valid = match_valid.to(torch.float32)
+    lead = param0.shape[:-1]
 
     def sys(p):
-        res, J = residual_and_jacobian(p[0])
+        res, J = residual_and_jacobian(p.reshape(param0.shape))
         w_rob = huber_weight(res, cfg.huber_delta) * w_valid
-        Jw = J * w_rob[:, None, None]
-        H = torch.einsum("mri,mrj->ij", Jw, J)
-        g = torch.einsum("mri,mr->i", Jw, res)
+        Jw = J * w_rob[..., None, None]
+        H = torch.einsum("...mri,...mrj->...ij", Jw, J)
+        g = torch.einsum("...mri,...mr->...i", Jw, res)
         cost = huber_cost(res, cfg.huber_delta, w_valid)
-        return cost[None], H[None], g[None]
+        return cost.reshape(-1), H.reshape(-1, 3, 3), g.reshape(-1, 3)
 
-    x, rep = lm_fixed(sys, param0[None], cfg)
-    return x[0], StageReport(rep.iterations[0], rep.initial_cost[0], rep.final_cost[0])
+    x, rep = lm_fixed(sys, param0.reshape(-1, 3), cfg)
+    return x.reshape(param0.shape), StageReport(*(f.reshape(lead) for f in rep))
 
 
-def _depth_columns(b1, d_pair):
-    if d_pair.ndim == 1:  # reference-compat: one (d1, d2) for every match
-        return d_pair[0].expand(b1.shape[:-1]), d_pair[1].expand(b1.shape[:-1])
-    return d_pair[:, 0], d_pair[:, 1]
+def _depth_columns(d_pair, match_valid):
+    """(d1, d2), each shaped like match_valid (..., M), from per-match
+    depths (..., M, 2) or from the reference-compat pair (..., 2) that
+    every match shares."""
+    if d_pair.ndim == match_valid.ndim:  # reference-compat
+        return (d_pair[..., 0, None].expand(match_valid.shape),
+                d_pair[..., 1, None].expand(match_valid.shape))
+    return d_pair[..., 0], d_pair[..., 1]
 
 
 def rotation_jacobian(r, x1):
-    """d/dr of the residual x2 - (R(r) x1 - t): (M, 3, 3) = R [x1]x J_r(r),
-    J_r(r) = I - a [r]x + b [r]x^2 the right Jacobian of SO(3), with
+    """d/dr of the residual x2 - (R(r) x1 - t): (..., M, 3, 3) =
+    R [x1]x J_r(r) for r (..., 3) and x1 (..., M, 3), where J_r(r) =
+    I - a [r]x + b [r]x^2 is the right Jacobian of SO(3), with
     a = (1 - cos th) / th^2 and b = (th - sin th) / th^3. Below th = 0.1
     their Taylor series (to th^4) replace them: th - sin th cancels
     catastrophically in float32 there."""
-    theta2 = torch.sum(r * r)
+    theta2 = torch.sum(r * r, dim=-1)[..., None, None]
     small = theta2 < 1e-2
     safe2 = torch.where(small, torch.ones_like(theta2), theta2)
     safe = torch.sqrt(safe2)
@@ -199,17 +222,20 @@ def rotation_jacobian(r, x1):
                     (safe - torch.sin(safe)) / (safe2 * safe))
     K = rotation.skew(r)
     jr = torch.eye(3, dtype=r.dtype, device=r.device) - a * K + b * (K @ K)
-    return rotation.angle_axis_to_matrix(r) @ rotation.skew(x1) @ jr
+    R = rotation.angle_axis_to_matrix(r)
+    return R[..., None, :, :] @ rotation.skew(x1) @ jr[..., None, :, :]
 
 
 def solve_rotation(b1, b2, d_pair, r0, t, match_valid, cfg: BaConfig):
-    """Rotation-only stage. d_pair: the (d1, d2) used for EVERY residual
-    (reference-compat quirk) or per-match depths (M, 2)."""
-    d1, d2 = _depth_columns(b1, d_pair)
-    x1 = b1 * d1[:, None]
+    """Rotation-only stage. d_pair: the (..., 2) pair (d1, d2) used for
+    EVERY residual (reference-compat quirk) or per-match depths
+    (..., M, 2)."""
+    d1, d2 = _depth_columns(d_pair, match_valid)
+    x1 = b1 * d1[..., None]
+    t_ = t[..., None, :]
 
     def residual_and_jacobian(r):
-        res = reprojection_residual(b1, b2, d1, d2, r, t)
+        res = reprojection_residual(b1, b2, d1, d2, r[..., None, :], t_)
         return res, rotation_jacobian(r, x1)
 
     return _global_stage(r0, residual_and_jacobian, match_valid, cfg)
@@ -218,10 +244,99 @@ def solve_rotation(b1, b2, d_pair, r0, t, match_valid, cfg: BaConfig):
 def solve_translation(b1, b2, d_pair, r, t0, match_valid, cfg: BaConfig):
     """Translation-only stage (same depth semantics as solve_rotation);
     the residual is linear in t with Jacobian I."""
-    d1, d2 = _depth_columns(b1, d_pair)
-    eye = torch.eye(3, dtype=b1.dtype, device=b1.device).expand(b1.shape[:-1] + (3, 3))
+    d1, d2 = _depth_columns(d_pair, match_valid)
+    r_ = r[..., None, :]
+    eye = torch.eye(3, dtype=b1.dtype, device=b1.device).expand(match_valid.shape + (3, 3))
 
     def residual_and_jacobian(t):
-        return reprojection_residual(b1, b2, d1, d2, r, t), eye
+        return reprojection_residual(b1, b2, d1, d2, r_, t[..., None, :]), eye
 
     return _global_stage(t0, residual_and_jacobian, match_valid, cfg)
+
+
+# ---------------------------------------------------------------------------
+# Joint Schur-complement Gauss-Newton (corrected formulation)
+
+
+def solve_joint_schur(b1, b2, d0, r0, t0, match_valid, cfg: BaConfig, num_iters=20):
+    """Joint (r, t, d) refinement by Schur elimination, `num_iters` fixed
+    damped steps.
+
+    Each step builds the per-match Jacobians in closed form (d res / d r =
+    rotation_jacobian, d res / d t = I, d res / d d1 = -R b1, d res / d d2
+    = b2), marginalizes each damped 2x2 depth block into the 6x6 camera
+    system, solves it by Cholesky (a NaN step where it is not positive
+    definite, which the cost test rejects) and back-substitutes the
+    depths. The d-stage's barrier rows lambda*exp(-c*d_i) enter the depth
+    blocks only: without them each low-parallax match's (d1, d2) scale
+    gauge lets its depths fall to the bound.
+
+    b1, b2: (M, 3); d0: (..., M, 2); r0, t0: (..., 3); match_valid:
+    (..., M). Returns (r, t, d, costs (..., num_iters)): the cost after
+    each step, of the accepted point.
+    """
+    w_valid = match_valid.to(torch.float32)
+    lam_b = cfg.barrier_lambda
+    c_b = cfg.barrier_c
+    eye3 = torch.eye(3, dtype=b1.dtype, device=b1.device)
+    eye2 = torch.eye(2, dtype=b1.dtype, device=b1.device)
+    eye6 = torch.eye(6, dtype=b1.dtype, device=b1.device)
+
+    def residual_all(r, t, d):
+        return reprojection_residual(b1, b2, d[..., 0], d[..., 1], r[..., None, :], t[..., None, :])
+
+    def total_cost(r, t, d):
+        rep = huber_cost(residual_all(r, t, d), cfg.huber_delta, w_valid)
+        bar = lam_b * torch.exp(-c_b * d)
+        return rep + 0.5 * torch.sum(torch.sum(bar * bar, dim=-1) * w_valid, dim=-1)
+
+    r, t, d = r0, t0, d0
+    lam = torch.full(r0.shape[:-1], cfg.lm_lambda_init, dtype=r0.dtype, device=r0.device)
+    costs = []
+    for _ in range(num_iters):
+        res = residual_all(r, t, d)  # (..., M, 3)
+        w = (huber_weight(res, cfg.huber_delta) * w_valid)[..., None, None]
+        x1 = b1 * d[..., 0, None]
+        j_r = rotation_jacobian(r, x1)  # (..., M, 3, 3)
+        Jc = torch.cat([j_r, eye3.expand(j_r.shape)], dim=-1)  # (..., M, 3, 6)
+        rb1 = rotation.rotate_angle_axis(r[..., None, :].expand(x1.shape), b1.expand(x1.shape))
+        Jd = torch.stack([-rb1, b2.expand(rb1.shape)], dim=-1)  # (..., M, 3, 2)
+
+        Hcc = torch.einsum("...mri,...mrj->...ij", Jc * w, Jc)  # (..., 6, 6)
+        Hcd = torch.einsum("...mri,...mrj->...mij", Jc * w, Jd)  # (..., M, 6, 2)
+        Hdd = torch.einsum("...mri,...mrj->...mij", Jd * w, Jd)  # (..., M, 2, 2)
+        gc = torch.einsum("...mri,...mr->...i", Jc * w, res)
+        gd = torch.einsum("...mri,...mr->...mi", Jd * w, res)
+
+        # barrier rows: diagonal in each depth block, no camera coupling
+        rb = lam_b * torch.exp(-c_b * d) * w_valid[..., None]  # (..., M, 2)
+        jb = -c_b * rb
+        Hdd = Hdd + torch.diag_embed(jb * jb)
+        gd = gd + jb * rb
+
+        # damp and invert the depth blocks; Schur complement onto (r, t)
+        diag = torch.diagonal(Hdd, dim1=-2, dim2=-1)
+        Hdd = Hdd + torch.diag_embed(lam[..., None, None] * torch.clamp(diag, min=1e-8))
+        Hdd_inv = smallmat.inv2(Hdd + 1e-9 * eye2)
+        HcdHinv = torch.einsum("...mij,...mjk->...mik", Hcd, Hdd_inv)
+        S = Hcc - torch.einsum("...mik,...mjk->...ij", HcdHinv, Hcd)
+        rhs = gc - torch.einsum("...mik,...mk->...i", HcdHinv, gd)
+        S = S + lam[..., None, None] * torch.diag_embed(torch.diagonal(S, dim1=-2, dim2=-1)) + 1e-9 * eye6
+        dc = -smallmat.solve_psd(S, rhs)
+        dd = -torch.einsum("...mij,...mj->...mi", Hdd_inv,
+                           gd + torch.einsum("...mji,...j->...mi", Hcd, dc))
+
+        r_new = r + dc[..., :3]
+        t_new = t + dc[..., 3:]
+        d_new = torch.clamp(d + dd, min=cfg.d_lower_bound)
+        cost_old = total_cost(r, t, d)
+        cost_new = total_cost(r_new, t_new, d_new)
+        accept = cost_new < cost_old
+        r = torch.where(accept[..., None], r_new, r)
+        t = torch.where(accept[..., None], t_new, t)
+        d = torch.where(accept[..., None, None], d_new, d)
+        lam = torch.clamp(torch.where(accept, lam / cfg.lm_lambda_down, lam * cfg.lm_lambda_up),
+                          1e-10, 1e8)
+        # the cost of the accepted point: a rejected step may carry NaN
+        costs.append(torch.where(accept, cost_new, cost_old))
+    return r, t, d, torch.stack(costs, dim=-1)

@@ -139,31 +139,49 @@ def test_top2_kernel_ties_across_lanes_and_blocks(dev, k2):
 
 
 def test_top2_kernel_on_two_streams_at_once(dev):
-    """Launches on two streams overlap (both queued behind a spin, 32
-    blocks each), and each still gives the plain version's result: the
-    blocks of one launch count their arrivals apart from the other's."""
+    """Launches on two streams overlap, and each still gives the plain
+    version's result: the blocks of one launch count their arrivals apart
+    from the other's. Both streams wait on one event recorded behind a
+    spin, so their launches start together, in pairs of equal work whose
+    blocks arrive at their counters at the same time; every launch takes
+    its own banks, so a merge that read another launch's partial results,
+    or a row left unwritten, cannot pass for right by repeating an
+    earlier launch's values."""
     rng = np.random.default_rng(3)
     banks = []
-    for _ in range(2):
+    for _ in range(16):
         d1 = torch.from_numpy(rng.normal(size=(512, 64)).astype(np.float32)).to(dev)
         d2 = torch.from_numpy(rng.normal(size=(2048, 64)).astype(np.float32)).to(dev)
         banks.append((d1, d2, torch.from_numpy(rng.random(2048) > 0.1).to(dev)))
     want = [cuda_match.top2_distances_plain(*b) for b in banks]
-    streams = [torch.cuda.Stream(dev) for _ in banks]
+    torch.cuda._sleep(10**7)
+    go = torch.cuda.Event()
+    go.record()
+    streams = [torch.cuda.Stream(dev) for _ in range(2)]
     for s in streams:
-        s.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(s):
-            torch.cuda._sleep(10**7)
+        s.wait_event(go)
     got = []
-    for _ in range(4):
-        for s, b in zip(streams, banks):
-            with torch.cuda.stream(s):
-                got.append(cuda_match.top2_distances(*b))
+    for k, b in enumerate(banks):
+        with torch.cuda.stream(streams[k % 2]):
+            got.append(cuda_match.top2_distances(*b))
     torch.cuda.synchronize()
-    for k, (dist, idx) in enumerate(got):
-        pd, pi = want[k % 2]
+    for k, ((dist, idx), (pd, pi)) in enumerate(zip(got, want)):
         assert torch.equal(idx, pi), k
         torch.testing.assert_close(dist, pd, atol=2e-3, rtol=0)
+
+
+def test_top2_counters_are_per_stream(dev):
+    """K3's arrival counters: one buffer for each stream, reused on the
+    same stream. Two overlapping launches that shared one could count each
+    other's blocks, a race test_top2_kernel_on_two_streams_at_once does not
+    reliably provoke (it passed against a shared buffer on an H100)."""
+    streams = [torch.cuda.Stream(dev) for _ in range(2)]
+    ptrs = []
+    for s in streams:
+        with torch.cuda.stream(s):
+            ptrs.append(cuda_match._counters(dev, 16).data_ptr())
+            assert cuda_match._counters(dev, 16).data_ptr() == ptrs[-1]
+    assert ptrs[0] != ptrs[1]
 
 
 def test_match_descriptors_mutual_check_on_the_card(dev):

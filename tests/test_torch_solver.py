@@ -2,8 +2,6 @@
 synthetic bearings of tests/test_solver.synth_two_view. torch cannot draw
 jax.random.gumbel, so the reference's draws are injected."""
 
-import dataclasses
-
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -170,26 +168,6 @@ def test_adjust_from_matches_parity(data):
     across, _ = _depth_valley(b1, b2, rj, tj, dt.numpy(), dj, cfg.ba)
     assert across[np.asarray(valid)].max() <= 1e-4
     assert telt.depth.iterations.shape == (cfg.ba.bcd_rounds,)
-
-
-@pytest.mark.parametrize(
-    "ba",
-    [BaConfig(reference_compat=False), BaConfig(outlier_reject=True),
-     BaConfig(joint_refine=True), BaConfig(multi_start=4)],
-)
-def test_corrected_mode_raises(data, ba):
-    b1, b2, valid = data
-    with pytest.raises(NotImplementedError):
-        ttv.adjust_from_matches(_t(b1), _t(b2), _t(valid), None,
-                                tconfig.from_reference(PipelineConfig(ba=ba)))
-
-
-def test_inlier_count_scoring_raises(data):
-    b1, b2, valid = data
-    cfg = dataclasses.replace(RansacConfig(), scoring="inlier_count")
-    with pytest.raises(NotImplementedError):
-        tepi.initial_guess(_t(b1), _t(b2), _t(valid), torch.Generator().manual_seed(0),
-                           tconfig.from_reference(cfg))
 
 
 def test_generator_draws_are_seeded(data):

@@ -142,3 +142,20 @@ def test_dense_ladder_frontend_parity(scene):
     pt = torch.cat([ft.left_xy, ft.right_xy], -1).numpy()[:nt]
     shared = sum(np.abs(pj - p).max(-1).min() < 0.05 for p in pt)
     assert shared >= 0.9 * nj
+
+
+@pytest.mark.parametrize("corrected", [False, True])
+def test_quality_preset_runs(scene, corrected):
+    """PipelineConfig.quality() (the dense ladder and inlier-count RANSAC
+    scoring), alone and with the bench's corrected mode, end to end in the
+    port: a consensus pose within the bench's 2K compat median gate
+    (2.5 deg) of the ground truth, and within 1.0 deg (the bench's
+    pitch-cell gate) in corrected mode (measured 1.30 and 0.37 deg)."""
+    _, _, R, _, (lt, rt, _) = scene
+    cfg = CFG.quality()
+    if corrected:
+        cfg = bench.corrected_mode(cfg)
+    out = ttv.run_two_view(lt, rt, torch.Generator().manual_seed(0), tconfig.from_reference(cfg))
+    assert bool(out.ok)
+    err = bench.rot_err_deg_host(out.rotation_aa.numpy()[None], R[None])[0]
+    assert err < (1.0 if corrected else 2.5), err
