@@ -24,10 +24,13 @@
 // design for 8K-scale banks (ROADMAP.md queue 2).
 //
 // Design, one launch (ops/cuda_match.top2_plan chooses the tiling):
-//  * the grid is (splits, query tiles): each block takes a tile of 128
-//    queries and a contiguous span of the train bank. At 2048 x 2048 that
-//    is 16 x 8 = 128 blocks of 256 threads, one wave on 132 SMs at one
-//    block per SM (168 registers a thread).
+//  * the grid is (splits, query tiles, pairs): each block takes a tile of
+//    128 queries of one pair and a contiguous span of that pair's train
+//    bank. At 2048 x 2048 that is 16 x 8 = 128 blocks of 256 threads a
+//    pair, one wave on 132 SMs at one block per SM (168 registers a
+//    thread). The pairs of a batch are independent problems with their
+//    own banks, scratch rows and counters, and each block computes
+//    exactly what it computes in a launch of its pair alone.
 //  * register-tiled outer product: thread (a, b) of a 16 x 16 thread grid
 //    owns queries a + 16 i and train rows b + 16 j of a 128 x 128 sub-tile
 //    (i, j < 8), 64 accumulators. Each step of 4 along d reads its 8 query
@@ -178,6 +181,16 @@ top2_kernel(const float* __restrict__ q, const float* __restrict__ t,
             const uint8_t* __restrict__ valid, float* __restrict__ dist,
             int* __restrict__ idx, Top2* __restrict__ part,
             unsigned* __restrict__ count, int k1, int k2, int span) {
+  // this block's pair: its banks, outputs, scratch rows and counters
+  const size_t pair = blockIdx.z;
+  q += pair * k1 * kDim;
+  t += pair * k2 * kDim;
+  valid += pair * k2;
+  dist += pair * k1 * 2;
+  idx += pair * k1 * 2;
+  part += pair * gridDim.x * k1;
+  count += pair * gridDim.y;
+
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;                                  // kQTile x kPitch
   float* ts = qs + kQTile * kPitch;                  // kStages x kSub x kPitch
@@ -335,19 +348,21 @@ top2_kernel(const float* __restrict__ q, const float* __restrict__ t,
 
 extern "C" {
 
-// q: (k1, 64) f32; t: (k2, 64) f32, both 16-byte aligned; valid: (k2,) u8
-// (torch.bool); dist: (k1, 2) f32; idx: (k1, 2) i32; part: (splits, k1)
-// top-2 scratch, 16 bytes each; count: one counter per query tile, zero
-// before the launch and left zero after it, that no other launch uses
-// while this one runs. The plan (ops/cuda_match.top2_plan): `q_tiles`
+// A batch of `pairs` independent problems, each pair's arrays one after
+// the other: q: (pairs, k1, 64) f32; t: (pairs, k2, 64) f32, both 16-byte
+// aligned; valid: (pairs, k2) u8 (torch.bool); dist: (pairs, k1, 2) f32;
+// idx: (pairs, k1, 2) i32; part: (pairs, splits, k1) top-2 scratch, 16
+// bytes each; count: one counter per (pair, query tile), zero before the
+// launch and left zero after it, that no other launch uses while this one
+// runs. The plan (ops/cuda_match.top2_plan): `q_tiles`
 // tiles of `q_tile` queries (this kernel's kQTile), `splits` blocks per
 // query tile, each taking `span` train rows (a multiple of kSub),
 // splits * span >= k2. A plan this kernel does not run is refused.
 int sba_top2(const float* q, const float* t, const uint8_t* valid, float* dist,
-             int* idx, void* part, unsigned* count, int k1, int k2, int dim,
-             int q_tile, int q_tiles, int span, int splits, int device,
+             int* idx, void* part, unsigned* count, int pairs, int k1, int k2,
+             int dim, int q_tile, int q_tiles, int span, int splits, int device,
              cudaStream_t stream) {
-  if (dim != kDim || k1 < 1 || k2 < 1 || q_tile != kQTile ||
+  if (dim != kDim || pairs < 1 || pairs > 65535 || k1 < 1 || k2 < 1 || q_tile != kQTile ||
       q_tiles != (k1 + kQTile - 1) / kQTile || q_tiles > 65535 || span < kSub ||
       span % kSub != 0 || splits < 1 || splits > kMaxSplits ||
       (long long)splits * span < k2 ||
@@ -360,7 +375,7 @@ int sba_top2(const float* q, const float* t, const uint8_t* valid, float* dist,
   err = cudaFuncSetAttribute(top2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)kSmemBytes);
   if (err != cudaSuccess) return (int)err;
-  top2_kernel<<<dim3(splits, q_tiles), kThreads, kSmemBytes, stream>>>(
+  top2_kernel<<<dim3(splits, q_tiles, pairs), kThreads, kSmemBytes, stream>>>(
       q, t, valid, dist, idx, static_cast<Top2*>(part), count, k1, k2, span);
   return (int)cudaGetLastError();
 }

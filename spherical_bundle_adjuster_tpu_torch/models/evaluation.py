@@ -3,8 +3,8 @@ ground-truth rotation (the reference's test/feature_test.cpp metrics),
 from spherical_bundle_adjuster_tpu/models/evaluation.py.
 
 A match is an inlier iff angle(R_gt @ b_left, b_right) is at most the
-threshold. `compare_frontends` waits for the ERP and cubemap front-ends
-(ROADMAP queue 1).
+threshold. `compare_frontends` scores all three front-ends on one pair
+(the reference's feature_test main flow).
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ import torch
 
 from ..core import sphere
 from ..utils.config import PipelineConfig
-from .frontend import FrontendResult
+from .frontend import FRONTENDS, FrontendResult
 
 
 class EvalMetrics(NamedTuple):
@@ -48,3 +48,11 @@ def evaluate_matches(fr: FrontendResult, R_gt, width: int, height: int,
     kept = torch.where(keep & torch.isfinite(sorted_d), sorted_d, 0.0)
     tmean = torch.sum(kept) / torch.clamp(torch.sum(keep), min=1).to(torch.float32)
     return EvalMetrics(n, outliers, pct, tmean, fr.total_keypoints)
+
+
+def compare_frontends(im_left, im_right, R_gt, cfg: PipelineConfig = PipelineConfig()):
+    """A/B/C comparison of the three front-ends on one ground-truth pair
+    (H, W, 3): {name: EvalMetrics} in FRONTENDS order."""
+    h, w = im_left.shape[0], im_left.shape[1]
+    return {name: evaluate_matches(fn(im_left, im_right, cfg), R_gt, w, h, cfg)
+            for name, fn in FRONTENDS.items()}

@@ -14,9 +14,11 @@ Stages:
      rotation-only residual when a pure rotation explains the matches)
 
 The k starts run as one batch through every stage (a leading start axis
-in solver/lm), as the reference vmapped them. The batched entry point
-raises NotImplementedError until a later slice ports it (ROADMAP
-queue 1).
+in solver/lm), as the reference vmapped them. `run_two_view_batch` runs
+P pairs the same way: the front end in passes of `batch_chunk` pairs
+(one K1, K2 and K3 launch each), then one solve with a leading pair axis
+for the whole batch, so each host sync and launch of the solver is paid
+once per batch, not once per pair.
 """
 
 from __future__ import annotations
@@ -29,15 +31,16 @@ import torch
 from ..core import rotation, sphere
 from ..solver import epipolar, lm
 from ..utils.config import PipelineConfig
-from .frontend import FRONTENDS, FrontendResult
+from .frontend import FRONTENDS, FrontendResult, frontend_pairs
 
 
 class SolverTelemetry(NamedTuple):
     """Per-BCD-stage convergence telemetry of the final solve of the
     winning start; each of depth / rot / tran is an lm.StageReport whose
-    fields are shaped (bcd_rounds,). `start` is the winning start's index
-    (0 with one start) and `rot_dominant` whether the rotation-dominant
-    selection chose it."""
+    fields are shaped (..., bcd_rounds). `start` is the winning start's
+    index (0 with one start) and `rot_dominant` whether the
+    rotation-dominant selection chose it. A batch adds a leading pair
+    axis to every field."""
 
     depth: lm.StageReport
     rot: lm.StageReport
@@ -47,6 +50,9 @@ class SolverTelemetry(NamedTuple):
 
 
 class TwoViewResult(NamedTuple):
+    """One pair's result; run_two_view_batch adds a leading pair axis to
+    every field."""
+
     rotation_aa: torch.Tensor      # (3,) refined rotation (angle-axis)
     rotation_deg: torch.Tensor     # (3,) angle-axis components * 180/pi
     translation: torch.Tensor      # (3,)
@@ -92,16 +98,19 @@ def _trimmed_mean_masked(x, valid, keep_frac=0.8):
 
 def _solve_from_init(b_left, b_right, base_valid, euler0, t0, ok, cfg, init_d):
     """The refinement from consensus candidates euler0, t0 (..., 3), ...
-    empty or one start axis: the stage-1 epipolar gate, BCD rounds of
-    d -> rot -> tran, the iterated stage-2 reprojection gates each
-    followed by a BCD re-solve from the init, and the joint Schur polish,
-    as cfg.ba asks. Returns (r, t, d, score, (depth, rot, tran) reports):
-    score is the 20%-trimmed mean angular residual over the pre-gate
-    matches, the multi-start criterion."""
+    an optional pair axis, then an optional start axis, with banks
+    (..., M, 3), masks (..., M) and depths (..., M, 2) that broadcast
+    against it: the stage-1 epipolar gate, BCD rounds of d -> rot -> tran,
+    the iterated stage-2 reprojection gates each followed by a BCD
+    re-solve from the init, and the joint Schur polish, as cfg.ba asks.
+    ok broadcasts against ... . Returns (r, t, d, score, (depth, rot,
+    tran) reports): score is the 20%-trimmed mean angular residual over
+    the pre-gate matches, the multi-start criterion."""
     ba = cfg.ba
     lead = euler0.shape[:-1]
-    base_valid = base_valid.expand(lead + base_valid.shape)
-    init_d = init_d.expand(lead + init_d.shape)
+    base_valid = base_valid.expand(lead + base_valid.shape[-1:])
+    init_d = init_d.expand(lead + init_d.shape[-2:])
+    ok = ok[..., None]  # against (..., M) and (..., 3)
     match_valid = base_valid
     thresh = math.radians(ba.outlier_thresh_deg)
     if ba.outlier_reject:
@@ -159,7 +168,7 @@ def _solve_from_init(b_left, b_right, base_valid, euler0, t0, ok, cfg, init_d):
     # init pose and mask the telemetry (0 iterations, NaN costs).
     r = torch.where(ok, r, r0)
     t = torch.where(ok, t, t0)
-    d = torch.where(ok, d, init_d)
+    d = torch.where(ok[..., None], d, init_d)
 
     def stage(i):  # one stage's reports over the BCD rounds: (..., bcd_rounds)
         fields = zip(*(rs[i] for rs in reps))
@@ -174,78 +183,73 @@ def _masked(x):
 
 
 def _select_start(b_left, b_right, match_valid, rs, scores, ba):
-    """The winning start of a multi-start solve: the lowest score, unless
-    some start explains the matches as a pure rotation to a median
-    residual below max(rot_dominant_select_deg, 1.5 x the best score),
-    capped at 3 deg; then the start of lowest rotation-only median.
-    Returns (index, whether the rotation-only criterion chose it)."""
-    win = torch.argmin(scores)
+    """The winning start of a multi-start solve, per pair: the lowest
+    score, unless some start explains the matches as a pure rotation to a
+    median residual below max(rot_dominant_select_deg, 1.5 x the best
+    score), capped at 3 deg; then the start of lowest rotation-only
+    median. rs (..., S, 3), scores (..., S). Returns (index, whether the
+    rotation-only criterion chose it), each (...)."""
+    win = torch.argmin(scores, dim=-1)
     if ba.rot_dominant_select_deg <= 0:
-        return win, torch.zeros((), dtype=torch.bool, device=win.device)
-    shape = rs.shape[:-1] + b_left.shape
-    pred = rotation.rotate_angle_axis(rs[:, None, :].expand(shape), b_left.expand(shape))
+        return win, torch.zeros(win.shape, dtype=torch.bool, device=win.device)
+    shape = rs.shape[:-1] + b_left.shape[-2:]
+    pred = rotation.rotate_angle_axis(rs[..., None, :].expand(shape), b_left.expand(shape))
     mr = epipolar.masked_median(sphere.angular_distance(pred, b_right.expand(shape)), match_valid)
-    thresh = torch.clamp(torch.clamp(1.5 * torch.amin(scores),
+    thresh = torch.clamp(torch.clamp(1.5 * torch.amin(scores, dim=-1),
                                      min=math.radians(ba.rot_dominant_select_deg)),
                          max=math.radians(3.0))
-    rot_dom = torch.amin(mr) < thresh
-    return torch.where(rot_dom, torch.argmin(mr), win), rot_dom
+    rot_dom = torch.amin(mr, dim=-1) < thresh
+    return torch.where(rot_dom, torch.argmin(mr, dim=-1), win), rot_dom
 
 
 def adjust_from_matches(b_left, b_right, match_valid, generator,
                         cfg: PipelineConfig = PipelineConfig(), init_depth=None,
                         gumbel=None):
-    """Initial guess + BCD refinement given lifted matched bearings.
+    """Initial guess + BCD refinement given lifted matched bearings
+    (..., M, 3) with an optional leading pair axis, each pair solved as it
+    would be alone.
 
     With cfg.ba.multi_start = k > 0 in corrected mode, the top-k
     consensus candidates (the last one the Kabsch rotation-only start)
     are refined as one batch and the best start wins (_select_start).
-    gumbel: optional (num_trials, M) RANSAC draws (else drawn from
+    gumbel: optional (..., num_trials, M) RANSAC draws (else drawn from
     `generator`). Returns (r, t, d, InitialGuess, SolverTelemetry).
     """
     ba = cfg.ba
     d0 = ba.init_depth if init_depth is None else init_depth
     dev = b_left.device
-    init_d = torch.full((b_left.shape[0], 2), d0, dtype=torch.float32, device=dev)
+    lead = match_valid.shape[:-1]
+    init_d = torch.full(b_left.shape[:-1] + (2,), d0, dtype=torch.float32, device=dev)
 
     if ba.multi_start and not ba.reference_compat:
         e_k, t_k, ok = epipolar.initial_guess_topk(b_left, b_right, match_valid, generator,
                                                    cfg.ransac, ba.multi_start, gumbel)
+        if lead:  # each pair's bank, shared by its starts
+            b_left, b_right = b_left[..., None, :, :], b_right[..., None, :, :]
+            match_valid, init_d = match_valid[..., None, :], init_d[..., None, :, :]
         rs, ts, ds, scores, reps = _solve_from_init(b_left, b_right, match_valid, e_k, t_k,
-                                                    ok, cfg, init_d)
+                                                    ok[..., None], cfg, init_d)
         win, rot_dom = _select_start(b_left, b_right, match_valid, rs, scores, ba)
         guess = epipolar.InitialGuess(
-            euler=e_k[win], translation=t_k[win],
-            num_candidates=torch.tensor(ba.multi_start, device=dev), ok=ok,
+            euler=epipolar.pick(e_k, win), translation=epipolar.pick(t_k, win),
+            num_candidates=torch.full(lead, ba.multi_start, device=dev), ok=ok,
         )
-        tel = SolverTelemetry(*(lm.StageReport(*(f[win] for f in rep)) for rep in reps),
+        tel = SolverTelemetry(*(lm.StageReport(*(epipolar.pick(f, win) for f in rep))
+                                for rep in reps),
                               start=win, rot_dominant=rot_dom)
-        return rs[win], ts[win], ds[win], guess, tel
+        return (epipolar.pick(rs, win), epipolar.pick(ts, win), epipolar.pick(ds, win),
+                guess, tel)
 
     guess = epipolar.initial_guess(b_left, b_right, match_valid, generator, cfg.ransac, gumbel)
     r, t, d, _, reps = _solve_from_init(
         b_left, b_right, match_valid, guess.euler, guess.translation, guess.ok, cfg, init_d
     )
-    tel = SolverTelemetry(*reps, start=torch.zeros((), dtype=torch.int64, device=dev),
-                          rot_dominant=torch.zeros((), dtype=torch.bool, device=dev))
+    tel = SolverTelemetry(*reps, start=torch.zeros(lead, dtype=torch.int64, device=dev),
+                          rot_dominant=torch.zeros(lead, dtype=torch.bool, device=dev))
     return r, t, d, guess, tel
 
 
-def run_two_view(im_left, im_right, generator, cfg: PipelineConfig = PipelineConfig(),
-                 frontend: str = "band", gumbel=None) -> TwoViewResult:
-    """End-to-end two-view spherical BA on an ERP image pair (H, W, 3).
-    Runs on the images' device; `generator` (a torch.Generator on that
-    device) drives the RANSAC subsampling unless `gumbel` is given."""
-    if frontend not in FRONTENDS:
-        raise NotImplementedError(
-            f"frontend={frontend!r} is not ported yet (ROADMAP queue 1); use 'band'"
-        )
-    h, w = im_left.shape[0], im_left.shape[1]
-    fr = FRONTENDS[frontend](im_left, im_right, cfg)
-    b_left, b_right = lift_matches(fr, w, h)
-    r, t, d, guess, tel = adjust_from_matches(
-        b_left, b_right, fr.match_valid, generator, cfg, gumbel=gumbel
-    )
+def _result(fr: FrontendResult, r, t, d, guess, tel) -> TwoViewResult:
     return TwoViewResult(
         rotation_aa=r,
         rotation_deg=r / math.pi * 180.0,
@@ -264,9 +268,53 @@ def run_two_view(im_left, im_right, generator, cfg: PipelineConfig = PipelineCon
     )
 
 
-def run_two_view_batch(*args, **kwargs):
-    """Batched two-view BA (the reference's run_two_view_batch)."""
-    raise NotImplementedError(
-        "run_two_view_batch is not ported yet; it lands with the host two-pass "
-        "auto ladder (ROADMAP queue 1, second slice)"
+def run_two_view(im_left, im_right, generator, cfg: PipelineConfig = PipelineConfig(),
+                 frontend: str = "band", gumbel=None) -> TwoViewResult:
+    """End-to-end two-view spherical BA on an ERP image pair (H, W, 3).
+    Runs on the images' device; `generator` (a torch.Generator on that
+    device) drives the RANSAC subsampling unless `gumbel`
+    (num_trials, max_matches) is given."""
+    if frontend not in FRONTENDS:
+        raise ValueError(f"unknown front end {frontend!r}; one of {sorted(FRONTENDS)}")
+    h, w = im_left.shape[0], im_left.shape[1]
+    fr = FRONTENDS[frontend](im_left, im_right, cfg)
+    b_left, b_right = lift_matches(fr, w, h)
+    r, t, d, guess, tel = adjust_from_matches(
+        b_left, b_right, fr.match_valid, generator, cfg, gumbel=gumbel
     )
+    return _result(fr, r, t, d, guess, tel)
+
+
+# Pairs per front-end pass of run_two_view_batch, chosen on an H100 by the
+# batch_chunk sweep of chip_smoke.py (PERF.md).
+BATCH_CHUNK = 16
+
+
+def run_two_view_batch(im_left, im_right, generator, cfg: PipelineConfig = PipelineConfig(),
+                       frontend: str = "band", batch_chunk: int = BATCH_CHUNK,
+                       gumbel=None) -> TwoViewResult:
+    """Two-view BA of P independent ERP pairs (P, H, W, 3): each pair's
+    result is run_two_view's on that pair with that pair's draws.
+
+    The front end runs `batch_chunk` pairs per device pass (0: the whole
+    batch), one K1, K2 and K3 launch each; a pass must stay under K1's
+    32-bit output bound (ops/cuda_surf). With the auto band ladder, every
+    pair takes the parity ladder, the match counts are read back once,
+    and only the pairs short of auto_min_matches re-run on the dense
+    ladder. Then one solve with a leading pair axis refines every pair.
+
+    gumbel: (P, num_trials, max_matches) RANSAC draws; without them, the
+    draws of all P pairs are made up front from `generator`, in pair
+    order, so a pair's draws depend neither on the chunking nor on the
+    auto re-run.
+    """
+    p, h, w = im_left.shape[:3]
+    if gumbel is None:
+        gumbel = epipolar.gumbel_draws(cfg.ransac.num_trials, cfg.match.max_matches,
+                                       generator, im_left.device, (p,))
+    fr = frontend_pairs(frontend, im_left, im_right, cfg, batch_chunk)
+    b_left, b_right = lift_matches(fr, w, h)
+    r, t, d, guess, tel = adjust_from_matches(
+        b_left, b_right, fr.match_valid, None, cfg, gumbel=gumbel
+    )
+    return _result(fr, r, t, d, guess, tel)

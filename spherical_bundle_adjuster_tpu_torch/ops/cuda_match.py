@@ -11,6 +11,11 @@ launch of a register-tiled fp32 product; the blocks of one query tile
 each take a span of the train bank, and the last of them to finish
 merges their top-2). `top2_plan` chooses its tiling.
 
+The banks may carry a leading pair axis, (P, K1, 64) against (P, K2, 64)
+with a (P, K2) mask: P independent problems in one launch (a grid
+dimension over pairs), each pair's output bit-identical to a launch of
+that pair alone.
+
 For CUDA tensors the wrapper launches the kernel or raises; for CPU
 tensors it runs the plain version: query chunks against the whole bank,
 then a first-minimum top-2 (argmin returns the first minimum, so ties go
@@ -62,10 +67,10 @@ def top2_plan(k1: int, k2: int) -> Top2Plan:
                     span=-(-units // splits) * SUB_ROWS)
 
 
-# One arrival counter per query tile, for each (device, stream): zero
-# before each launch, and the kernel leaves it zero (the last block of a
-# tile resets it), so it is zeroed once, when it is allocated. Launches on
-# one stream run in order, and launches on two streams that may overlap
+# One arrival counter per (pair, query tile), for each (device, stream):
+# zero before each launch, and the kernel leaves it zero (the last block of
+# a tile resets it), so it is zeroed once, when it is allocated. Launches
+# on one stream run in order, and launches on two streams that may overlap
 # count on two buffers.
 _COUNTERS: dict = {}
 
@@ -81,7 +86,10 @@ def _counters(dev, n):
 
 def top2_distances_plain(desc1, desc2, valid2):
     """(dist (K1, 2) f32, idx (K1, 2) int32) of each query's two nearest
-    valid train rows."""
+    valid train rows; with a leading pair axis, each pair on its own."""
+    if desc1.ndim == 3:
+        outs = [top2_distances_plain(*bank) for bank in zip(desc1, desc2, valid2)]
+        return tuple(torch.stack(x) for x in zip(*outs))
     d1 = desc1.to(torch.float32)
     d2 = desc2.to(torch.float32)
     tt = torch.sum(d2 * d2, dim=-1)
@@ -104,13 +112,17 @@ def top2_distances_plain(desc1, desc2, valid2):
 def top2_distances_cuda(desc1, desc2, valid2):
     """K3 on the card: same contract as top2_distances_plain. Takes
     contiguous, 16-byte aligned f32 (K1, 64) and (K2, 64) banks and a
-    bool (K2,) mask."""
+    bool (K2,) mask, or (P, K1, 64), (P, K2, 64) and (P, K2) for P pairs
+    in one launch."""
+    if desc1.ndim == 2:
+        dist, idx = top2_distances_cuda(desc1[None], desc2[None], valid2[None])
+        return dist[0], idx[0]
     dev = desc1.device
-    k1, dim = desc1.shape
-    k2 = desc2.shape[0]
+    p, k1, dim = desc1.shape
+    k2 = desc2.shape[1]
     kernels.check(desc1, "desc1", torch.float32, dev)
-    kernels.check(desc2, "desc2", torch.float32, dev, (k2, dim))
-    kernels.check(valid2, "valid2", torch.bool, dev, (k2,))
+    kernels.check(desc2, "desc2", torch.float32, dev, (p, k2, dim))
+    kernels.check(valid2, "valid2", torch.bool, dev, (p, k2))
     if dim != 64:
         raise ValueError(f"top2_distances: descriptor width must be 64, got {dim}")
     if k1 < 1 or k2 < 1:
@@ -118,20 +130,21 @@ def top2_distances_cuda(desc1, desc2, valid2):
     if desc1.data_ptr() % 16 or desc2.data_ptr() % 16:
         raise ValueError("top2_distances: the banks must be 16-byte aligned")
     plan = top2_plan(k1, k2)
-    dist = torch.empty((k1, 2), dtype=torch.float32, device=dev)
-    idx = torch.empty((k1, 2), dtype=torch.int32, device=dev)
-    part = torch.empty((plan.splits, k1, 4), dtype=torch.float32, device=dev)
+    dist = torch.empty((p, k1, 2), dtype=torch.float32, device=dev)
+    idx = torch.empty((p, k1, 2), dtype=torch.int32, device=dev)
+    part = torch.empty((p, plan.splits, k1, 4), dtype=torch.float32, device=dev)
     TOP2.launch(
         dev, kernels.ptr(desc1), kernels.ptr(desc2), kernels.ptr(valid2),
         kernels.ptr(dist), kernels.ptr(idx), kernels.ptr(part),
-        kernels.ptr(_counters(dev, plan.q_tiles)), k1, k2, dim, Q_TILE, plan.q_tiles,
-        plan.span, plan.splits,
+        kernels.ptr(_counters(dev, p * plan.q_tiles)), p, k1, k2, dim, Q_TILE,
+        plan.q_tiles, plan.span, plan.splits,
     )
     return dist, idx
 
 
 def top2_distances(desc1, desc2, valid2):
-    """K3 for CUDA tensors, its plain version for CPU tensors."""
+    """K3 for CUDA tensors, its plain version for CPU tensors; the banks
+    may carry a leading pair axis."""
     if desc1.is_cuda:
         return top2_distances_cuda(desc1, desc2, valid2)
     if desc1.device.type == "cpu":

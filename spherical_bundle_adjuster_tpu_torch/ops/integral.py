@@ -34,12 +34,15 @@ def integral_image(gray):
 
     ii[y, x] = sum of gray[:y, :x]; ii[0, :] = ii[:, 0] = 0. The result is
     a view whose rows are padded in memory to a multiple of ROW_ALIGN
-    floats (is_row_aligned).
+    floats (is_row_aligned). Both prefix sums accumulate in float64 and
+    the result is rounded once to float32, so every entry is within half
+    an ulp of the exact sum on any device (a float32 scan's error grows
+    with the band and depends on the device's summation order).
     """
-    ii = torch.cumsum(torch.cumsum(gray.to(torch.float32), dim=-2), dim=-1)
+    ii = torch.cumsum(torch.cumsum(gray.to(torch.float64), dim=-2), dim=-1)
     *lead, h, w = ii.shape
     ld = -(-(w + 1) // ROW_ALIGN) * ROW_ALIGN
-    out = ii.new_zeros((*lead, h + 1, ld))
+    out = torch.zeros((*lead, h + 1, ld), dtype=torch.float32, device=ii.device)
     out[..., 1:, 1 : w + 1] = ii
     return out[..., : w + 1]
 

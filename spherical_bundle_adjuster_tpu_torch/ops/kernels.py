@@ -36,7 +36,7 @@ _I = ctypes.c_int
 SIGNATURES = {
     "sba_det_pyramid": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "sba_haar_trace": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    "sba_top2": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "sba_top2": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lib = None

@@ -14,11 +14,17 @@ function over them):
 
 Fixed choices where the reference has TPU-only modes: keypoints are
 selected with an exact, stable top-K (`torch.sort(stable=True)`, the
-lower index first on ties, as lax.top_k); the gray band is rounded to
-integers before descriptor sampling (the reference's MXU gather path,
-which the bench gates were calibrated on); the dense maps always come
-from the kernels on CUDA. The port's SurfConfig has no `gather_mode`,
-`mxu_gather_chunk`, `topk_mode`, `topk_recall` or `det_mode`.
+lower index first on ties, as lax.top_k); with descriptor_interp
+"nearest" the gray band is rounded to integers before descriptor
+sampling (the reference's MXU gather path, which the bench gates were
+calibrated on); the dense maps always come from the kernels on CUDA. The
+port's SurfConfig has no `gather_mode`, `mxu_gather_chunk`, `topk_mode`,
+`topk_recall` or `det_mode`.
+
+The optional modes: descriptor_interp="bilinear" samples the (unrounded)
+gray band bilinearly; laplacian_mode="gather" reads each keypoint's
+Laplacian sign from 24 integral-image corners at its own rounded size
+instead of the K2 trace-sign map of its detection layer.
 """
 
 from __future__ import annotations
@@ -53,17 +59,6 @@ class Keypoints(NamedTuple):
     def scale(self):
         """SURF scale s = size * 1.2 / 9 (OpenCV convention)."""
         return self.size * (1.2 / 9.0)
-
-
-def _check_supported(cfg: SurfConfig):
-    if cfg.descriptor_interp != "nearest":
-        raise NotImplementedError(
-            "descriptor_interp='bilinear' is not ported yet (ROADMAP queue 1)"
-        )
-    if cfg.laplacian_mode != "dense":
-        raise NotImplementedError(
-            "laplacian_mode='gather' is not ported yet (ROADMAP queue 1)"
-        )
 
 
 def _nms_candidates(det_list, cfg: SurfConfig):
@@ -219,6 +214,41 @@ def _lap_from_trace_maps(maps, kp: Keypoints, cfg: SurfConfig):
     return _sample_maps(maps, li, y, x).to(torch.float32)
 
 
+# The gather-mode trace: Dyy boxes over row slots (0, 1), (1, 2), (2, 3)
+# x column slots (4, 5), Dxx boxes over rows (4, 5) x columns (0, 1),
+# (1, 2), (2, 3), weights (1, -2, 1); each box's four corners
+# (y1, x1, +), (y0, x1, -), (y1, x0, -), (y0, x0, +).
+_TRACE_BOXES = ([(i, i + 1, 4, 5, wt) for i, wt in ((0, 1.0), (1, -2.0), (2, 1.0))]
+                + [(4, 5, i, i + 1, wt) for i, wt in ((0, 1.0), (1, -2.0), (2, 1.0))])
+_TRACE_CORNERS = [(rr, cc, wt * sgn) for (r0, r1, c0, c1, wt) in _TRACE_BOXES
+                  for (rr, cc, sgn) in ((r1, c1, 1.0), (r0, c1, -1.0), (r1, c0, -1.0),
+                                        (r0, c0, 1.0))]
+
+
+def _lap_from_corners(ii, kp: Keypoints):
+    """Laplacian sign (laplacian_mode="gather"): sign(Dxx + Dyy) of the
+    thirds-geometry trace at each keypoint's rounded size, from 24 corners
+    of the integral image ii (B, h+1, w+1) with slot offsets {0, t, 2t,
+    3t, b, size - b}, t = size / 3 and b = 2 size / 9 truncated."""
+    h, w = ii.shape[1] - 1, ii.shape[2] - 1
+    size = torch.round(kp.size).to(torch.int64)
+    half = torch.div(size, 2, rounding_mode="floor")
+    x = torch.round(kp.xy[..., 0]).to(torch.int64) - half
+    y = torch.round(kp.xy[..., 1]).to(torch.int64) - half
+    third = (size.to(torch.float32) / 3.0).to(torch.int64)
+    b = (2.0 * size.to(torch.float32) / 9.0).to(torch.int64)
+    slots = torch.stack([torch.zeros_like(size), third, 2 * third, 3 * third, b, size - b], -1)
+    rows = torch.clamp(y[..., None] + slots, 0, h)  # (B, K, 6)
+    cols = torch.clamp(x[..., None] + slots, 0, w)
+    dev = ii.device
+    cr = torch.tensor([c[0] for c in _TRACE_CORNERS], device=dev)
+    cc = torch.tensor([c[1] for c in _TRACE_CORNERS], device=dev)
+    coef = torch.tensor([c[2] for c in _TRACE_CORNERS], dtype=torch.float32, device=dev)
+    bi = torch.arange(ii.shape[0], device=dev)[:, None, None]
+    v = ii[bi, rows[..., cr], cols[..., cc]]  # (B, K, 24)
+    return torch.sign(torch.sum(v * coef, dim=-1))
+
+
 def _assign_orientation(kp: Keypoints, hx_maps, hy_maps, cfg: SurfConfig):
     """Dominant orientation per keypoint (classic SURF sliding window).
 
@@ -288,8 +318,8 @@ def _gauss20(device):
 def describe(gray, kp: Keypoints, cfg: SurfConfig):
     """64-d SURF descriptors (B, K, 64), L2-normalized; zero rows for
     invalid slots. Samples the integer-rounded gray (OpenCV's 8-bit
-    quantization) at the nearest pixel of a rotated 21x21 grid."""
-    _check_supported(cfg)
+    quantization) at the nearest pixel of a rotated 21x21 grid, or the
+    gray band itself bilinearly (descriptor_interp="bilinear")."""
     b, h, w = gray.shape
     dev = gray.device
     gxs, gys = _descriptor_grid(dev)
@@ -298,10 +328,27 @@ def describe(gray, kp: Keypoints, cfg: SurfConfig):
     si = torch.sin(kp.orientation)[..., None, None]
     px = kp.xy[..., 0, None, None] + s * (co * gxs - si * gys)
     py = kp.xy[..., 1, None, None] + s * (si * gxs + co * gys)
-    xi = torch.clamp(torch.round(px).to(torch.int64), 0, w - 1)
-    yi = torch.clamp(torch.round(py).to(torch.int64), 0, h - 1)
     bi = torch.arange(b, device=dev)[:, None, None, None]
-    patch = torch.round(gray).reshape(-1)[(bi * h + yi) * w + xi]  # (B, K, 21, 21)
+    if cfg.descriptor_interp == "bilinear":
+        x0, y0 = torch.floor(px), torch.floor(py)
+        fx, fy = px - x0, py - y0
+        x0i = torch.clamp(x0.to(torch.int64), 0, w - 1)
+        y0i = torch.clamp(y0.to(torch.int64), 0, h - 1)
+        x1i = torch.clamp(x0i + 1, 0, w - 1)
+        y1i = torch.clamp(y0i + 1, 0, h - 1)
+        flat = gray.reshape(-1)
+
+        def at(yy, xx):
+            return flat[(bi * h + yy) * w + xx]
+
+        patch = (at(y0i, x0i) * (1 - fx) * (1 - fy) + at(y0i, x1i) * fx * (1 - fy)
+                 + at(y1i, x0i) * (1 - fx) * fy + at(y1i, x1i) * fx * fy)  # (B, K, 21, 21)
+    elif cfg.descriptor_interp == "nearest":
+        xi = torch.clamp(torch.round(px).to(torch.int64), 0, w - 1)
+        yi = torch.clamp(torch.round(py).to(torch.int64), 0, h - 1)
+        patch = torch.round(gray).reshape(-1)[(bi * h + yi) * w + xi]  # (B, K, 21, 21)
+    else:
+        raise ValueError(f"unknown descriptor_interp {cfg.descriptor_interp!r}")
 
     dx = 0.5 * (
         patch[..., :-1, 1:] - patch[..., :-1, :-1] + patch[..., 1:, 1:] - patch[..., 1:, :-1]
@@ -328,14 +375,16 @@ def describe(gray, kp: Keypoints, cfg: SurfConfig):
 def detect(gray, cfg: SurfConfig = SurfConfig()):
     """Up to cfg.max_keypoints SURF keypoints per band of gray (B, H, W),
     with orientation and Laplacian sign filled in."""
-    _check_supported(cfg)
+    if cfg.laplacian_mode not in ("dense", "gather"):
+        raise ValueError(f"unknown laplacian_mode {cfg.laplacian_mode!r}")
     gray = gray.to(torch.float32)
     ii = integral.integral_image(gray)
     det_list = cuda_surf.det_pyramid(ii, cfg)  # per octave, -inf outside the border
     cand_list = _nms_candidates(det_list, cfg)
     kp = _refine_and_pack(det_list, cand_list, cfg)
     hx_maps, hy_maps, trace_maps = cuda_surf.haar_trace_maps(ii, cfg)
-    lap = _lap_from_trace_maps(trace_maps, kp, cfg)
+    lap = (_lap_from_trace_maps(trace_maps, kp, cfg) if cfg.laplacian_mode == "dense"
+           else _lap_from_corners(ii, kp))
     ori = _assign_orientation(kp, hx_maps, hy_maps, cfg)
     return kp._replace(
         orientation=torch.where(kp.valid, ori, 0.0),

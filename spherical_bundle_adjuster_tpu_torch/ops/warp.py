@@ -1,7 +1,25 @@
-"""Gather-based image resampling: the band half of
-spherical_bundle_adjuster_tpu/ops/warp.py (rotated band crops and the
-band -> ERP keypoint map). The cubemap warps wait for the ERP and cubemap
-front-ends.
+"""Gather-based image resampling, from
+spherical_bundle_adjuster_tpu/ops/warp.py: rotated band crops and the
+band -> ERP keypoint map, the ERP -> cubemap warps and the full-sphere
+rotation warp. Each warp computes its source coordinates, then gathers;
+a trailing channel axis rides along, so a stack of gray images moved to
+the channel axis (H, W, N) is warped in one gather.
+
+The rotation warps compute their source coordinates in float32, as the
+reference does. The two packages' float32 trigonometry differs in its
+last bits, so a floor crop can take another source pixel near a pixel
+boundary: on the CPU a 64x128 image's bands equal the reference's bit
+for bit (tests/test_torch_core.py), and at 512x1024 13-17 of a pair's
+1.05M band pixels differ (tests/test_torch_bench_pair.py therefore hands
+the reference the port's crops). The cube faces' coordinates are
+computed in float64, so that a floor or nearest sample picks the same
+pixel on every device: in float32 the devices' trigonometry differs in
+its last bits and moves coordinates across pixel boundaries (56 of the
+2.16M samples of a 1024x2048 image's 600-pixel cube strip between an
+H100 and its host CPU, changing 29 strip pixels; card_rounding.py's
+warps reading), and each changed pixel shifts the integral image below
+and right of it, which moves matches. Bilinear weights stay float32, as
+the reference's.
 
 Sampling modes:
   * "floor"    — integer truncation (+2e-3 epsilon), bit-matching the
@@ -14,7 +32,7 @@ from __future__ import annotations
 
 import torch
 
-from ..core import rotation, sphere
+from ..core import cube, rotation, sphere
 
 
 def _gather_pixels(image, ix, iy):
@@ -34,6 +52,8 @@ def resample(image, coords, mode: str = "floor"):
     """
     x = coords[..., 0]
     y = coords[..., 1]
+    if mode == "bilinear":
+        x, y = x.to(torch.float32), y.to(torch.float32)
     if mode == "floor":
         # float32 warp coordinates that are integral in exact arithmetic
         # land a few ulps below the integer; the epsilon keeps floor parity.
@@ -79,6 +99,38 @@ def erp_rotation_coords(R, width, height, row_start, num_rows):
     v = sphere.pixel_to_bearing(xy, width, height)  # (num_rows, W, 3)
     v_rot = torch.einsum("...rc,ijc->...ijr", R.to(torch.float32), v)
     return sphere.bearing_to_pixel(v_rot, width, height)
+
+
+def _face_coords(cube_size, width, height, device, face=None):
+    """Source ERP coordinates (float64) of every face's rays (6, S, S, 2),
+    or of one face's (S, S, 2)."""
+    rays = cube.face_rays(cube_size, dtype=torch.float64, device=device)
+    if face is not None:
+        rays = rays[cube.FACE_NAMES.index(face)]
+    v = rays / torch.linalg.vector_norm(rays, dim=-1, keepdim=True)
+    return sphere.spherical_to_pixel(sphere.cartesian_to_spherical(v), width, height)
+
+
+def equi_to_cubemap(image, cube_size: int, mode: str = "floor"):
+    """ERP image (H, W, ...) -> cube strip (S, 6S, ...), faces in
+    left | front | right | back | top | bottom order."""
+    h, w = image.shape[0], image.shape[1]
+    faces = resample(image, _face_coords(cube_size, w, h, image.device), mode)  # (6, S, S, ...)
+    return torch.cat(list(faces), dim=1)
+
+
+def equi_to_cube_face(image, face: str, cube_size: int, mode: str = "floor"):
+    """One cube face (S, S, ...) of an ERP image; `face` is a name from
+    core.cube.FACE_NAMES."""
+    h, w = image.shape[0], image.shape[1]
+    return resample(image, _face_coords(cube_size, w, h, image.device, face), mode)
+
+
+def rotate_erp(image, R, mode: str = "floor"):
+    """Full-sphere rotation warp of an ERP image (H, W, ...) by rotation
+    matrix R (3, 3)."""
+    h, w = image.shape[0], image.shape[1]
+    return resample(image, erp_rotation_coords(R, w, h, 0, h), mode)
 
 
 def _pitch_matrix(pitch_rad):

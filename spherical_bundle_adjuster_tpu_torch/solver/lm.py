@@ -14,12 +14,15 @@ spherical_bundle_adjuster_tpu/solver/lm.py.
     per-match 2x2 depth blocks marginalized into a 6x6 camera system, the
     same closed-form Jacobians and the d-stage's barrier.
 
-Every stage takes an optional leading start axis: r, t (S, 3), depths
-(S, M, 2) and match masks (S, M) against one shared (M, 3) bearing bank,
-so the S starts of multi-start refinement run as one batch (the
-reference vmapped them). The depth stage then solves S*M 2x2 problems
-and the rotation and translation stages S 3-parameter problems, in one
-`lm_fixed` call each.
+Every stage takes optional leading axes, a pair axis and then a start
+axis: r, t (P, S, 3), depths (P, S, M, 2) and match masks (P, S, M)
+against bearing banks that broadcast to them ((P, 1, M, 3): each pair's
+bank, shared by its starts), so the P pairs of a batch and the S starts
+of multi-start refinement run as one batch (the reference vmapped them).
+The depth stage then solves P*S*M 2x2 problems and the rotation and
+translation stages P*S 3-parameter problems, in one `lm_fixed` call
+each; without leading axes, a stage is the single-pair, single-start
+one.
 
 `lm_fixed` runs a batch of independent problems. Each element stops at
 its own convergence or damping cap and keeps its state frozen from then
@@ -132,8 +135,8 @@ def solve_depths(b1, b2, d_init, r, t, match_valid, cfg: BaConfig):
     """Optimize per-match (d1, d2) with fixed (r, t).
 
     Residual is 5-dim: 3 reprojection + 2 barrier terms lambda*exp(-c*d_i),
-    no robust loss, bound d >= 0. b1, b2: (M, 3); d_init: (..., M, 2); r, t:
-    (..., 3); match_valid: (..., M), with ... empty or one start axis.
+    no robust loss, bound d >= 0. b1, b2: (..., M, 3), broadcasting
+    against d_init (..., M, 2); r, t: (..., 3); match_valid: (..., M).
     Returns ((..., M, 2), StageReport) with, per start, iterations = max
     over valid matches and costs summed over valid matches.
     """
@@ -141,8 +144,8 @@ def solve_depths(b1, b2, d_init, r, t, match_valid, cfg: BaConfig):
     c_b = cfg.barrier_c
     lead, m = match_valid.shape[:-1], match_valid.shape[-1]
     # one 2x2 problem per (start, match): per-problem bearings and pose
-    bb1 = b1.expand(lead + b1.shape).reshape(-1, 3)
-    bb2 = b2.expand(lead + b2.shape).reshape(-1, 3)
+    bb1 = b1.expand(lead + b1.shape[-2:]).reshape(-1, 3)
+    bb2 = b2.expand(lead + b2.shape[-2:]).reshape(-1, 3)
     rr = r[..., None, :].expand(lead + (m, 3)).reshape(-1, 3)
     tt = t[..., None, :].expand(lead + (m, 3)).reshape(-1, 3)
     # The residual is linear in each depth: d rep / d (d1, d2) = [-R b1, b2],
@@ -271,9 +274,9 @@ def solve_joint_schur(b1, b2, d0, r0, t0, match_valid, cfg: BaConfig, num_iters=
     blocks only: without them each low-parallax match's (d1, d2) scale
     gauge lets its depths fall to the bound.
 
-    b1, b2: (M, 3); d0: (..., M, 2); r0, t0: (..., 3); match_valid:
-    (..., M). Returns (r, t, d, costs (..., num_iters)): the cost after
-    each step, of the accepted point.
+    b1, b2: (..., M, 3), broadcasting against d0 (..., M, 2); r0, t0:
+    (..., 3); match_valid: (..., M). Returns (r, t, d, costs
+    (..., num_iters)): the cost after each step, of the accepted point.
     """
     w_valid = match_valid.to(torch.float32)
     lam_b = cfg.barrier_lambda

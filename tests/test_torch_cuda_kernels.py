@@ -184,6 +184,50 @@ def test_top2_counters_are_per_stream(dev):
     assert ptrs[0] != ptrs[1]
 
 
+@pytest.mark.parametrize("pairs", [1, 3, 64])
+def test_top2_batched_launch_equals_separate_launches(dev, pairs):
+    """One launch over P pairs of ragged banks (1000 queries against 2100
+    train rows, ~10% invalid, exact ties planted per pair) gives each pair
+    bit for bit what a launch of that pair alone gives."""
+    g = torch.Generator(dev).manual_seed(pairs)
+    d1 = torch.randn(pairs, 1000, 64, device=dev, generator=g)
+    d2 = torch.randn(pairs, 2100, 64, device=dev, generator=g)
+    v2 = torch.rand(pairs, 2100, device=dev, generator=g) > 0.1
+    d2[:, [1, 16, 1025, 2099]] = d1[:, :1]
+    v2[:, [1, 16, 1025, 2099]] = True
+    before = cuda_match.TOP2.launches
+    dist, idx = cuda_match.top2_distances(d1, d2, v2)
+    torch.cuda.synchronize()
+    assert cuda_match.TOP2.launches == before + 1
+    assert dist.shape == (pairs, 1000, 2) and idx.shape == (pairs, 1000, 2)
+    for p in range(pairs):
+        one_d, one_i = cuda_match.top2_distances(d1[p], d2[p], v2[p])
+        assert torch.equal(dist[p], one_d) and torch.equal(idx[p], one_i), p
+        assert idx[p, 0].tolist() == [1, 16]
+
+
+def test_top2_batched_counters_are_per_pair_tile_and_left_zero(dev):
+    """A batched launch counts on one entry per (pair, query tile) of its
+    stream's buffer and leaves every entry zero; launches on another
+    stream use another buffer."""
+    pairs, k1, k2 = 5, 700, 1500
+    tiles = pairs * cuda_match.top2_plan(k1, k2).q_tiles
+    g = torch.Generator(dev).manual_seed(1)
+    d1 = torch.randn(pairs, k1, 64, device=dev, generator=g)
+    d2 = torch.randn(pairs, k2, 64, device=dev, generator=g)
+    v2 = torch.ones(pairs, k2, dtype=torch.bool, device=dev)
+    cuda_match.top2_distances(d1, d2, v2)
+    torch.cuda.synchronize()
+    buf = cuda_match._counters(dev, tiles)
+    assert buf.numel() >= tiles and not bool(buf.any())
+    s = torch.cuda.Stream(dev)
+    with torch.cuda.stream(s):
+        cuda_match.top2_distances(d1, d2, v2)
+        other = cuda_match._counters(dev, tiles)
+    torch.cuda.synchronize()
+    assert other.data_ptr() != buf.data_ptr() and not bool(other.any())
+
+
 def test_match_descriptors_mutual_check_on_the_card(dev):
     """The same matches on the card as on the CPU, with mutual_check."""
     from spherical_bundle_adjuster_tpu_torch.ops import match
@@ -260,3 +304,30 @@ def test_run_two_view_on_the_card_uses_every_kernel(dev):
     assert all(k.launches > b for k, b in zip(kernels, before))
     assert bool(out.ok) and int(out.num_matches) >= 16
     assert out.rotation_aa.device.type == "cuda"
+
+
+def test_run_two_view_batch_on_the_card(dev):
+    """Three pairs in chunks of 2: one K1 / K2 / K3 launch per chunk, and
+    each pair's match list that of its single-pair run with its draws."""
+    from spherical_bundle_adjuster_tpu_torch.models import twoview
+    from spherical_bundle_adjuster_tpu_torch.solver import epipolar
+    from spherical_bundle_adjuster_tpu_torch.utils import synthetic
+
+    cfg = PipelineConfig(surf=SurfConfig(max_keypoints=128, n_octaves=2),
+                         match=MatchConfig(max_matches=256, ratio_thresh=0.5)).parity()
+    pairs = [synthetic.rotation_pair(synthetic.texture_params_from_numpy(np.random.default_rng(i)),
+                                     np.deg2rad([1.0, -2.0, 3.0 * i]).astype(np.float32),
+                                     128, 256, dev) for i in range(3)]
+    lefts, rights = (torch.stack([p[k] for p in pairs]) for k in (0, 1))
+    gumbel = epipolar.gumbel_draws(cfg.ransac.num_trials, 256, torch.Generator(dev).manual_seed(0),
+                                   dev, (3,))
+    kernels = (cuda_surf.DET_PYRAMID, cuda_surf.HAAR_TRACE, cuda_match.TOP2)
+    before = [k.launches for k in kernels]
+    out = twoview.run_two_view_batch(lefts, rights, None, cfg, batch_chunk=2, gumbel=gumbel)
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(kernels, before)] == [2, 2, 2]
+    for i in range(3):
+        one = twoview.run_two_view(lefts[i], rights[i], None, cfg, gumbel=gumbel[i])
+        assert torch.equal(one.match_valid, out.match_valid[i])
+        assert torch.equal(one.left_xy, out.left_xy[i]) and torch.equal(one.right_xy, out.right_xy[i])
+        assert bool(out.ok[i])

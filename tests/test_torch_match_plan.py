@@ -162,3 +162,65 @@ def test_replayed_merge_gives_plain_indices(k1, k2):
         np.testing.assert_array_equal(want[qi].numpy(), rows[:2])
     got = _replay(dist2, cuda_match.top2_plan(k1, k2), k1, k2)
     np.testing.assert_array_equal(got, want.numpy())
+
+
+def _replay_batch(dist2s, plan, k1, k2):
+    """The batched launch, replayed on flat buffers as csrc/match_top2.cu
+    addresses them: block (split r, query tile qt, pair p) writes its
+    top-2 to part[(p * splits + r) * k1 + qi] and counts on
+    count[p * q_tiles + qt]; the block that brings a counter to `splits`
+    folds that pair's splits in order. Returns (indices (P, k1, 2), how
+    often each scratch slot was written, the final counters)."""
+    p_n = len(dist2s)
+    part = [None] * (p_n * plan.splits * k1)
+    writes = np.zeros(p_n * plan.splits * k1, np.int64)
+    count = np.zeros(p_n * plan.q_tiles, np.int64)
+    out = np.zeros((p_n, k1, 2), np.int64)
+    for p in range(p_n):
+        for qrows, subs, r in _blocks(plan, k1, k2):
+            sub_d = dist2s[p][qrows]
+            lanes = []
+            for b in range(GRID):
+                rows = np.concatenate([s[b::GRID] for s in subs]) if subs else np.zeros(0, int)
+                lanes.append(_thread_top2(sub_d, rows.astype(np.int64)))
+            for m in (1, 2, 4, 8):
+                lanes = [_merge(lanes[b], lanes[b ^ m]) for b in range(GRID)]
+            for n, qi in enumerate(qrows):
+                slot = (p * plan.splits + r) * k1 + qi
+                part[slot] = tuple(x[n] for x in lanes[0])
+                writes[slot] += 1
+            qt = qrows[0] // Q
+            c = p * plan.q_tiles + qt
+            count[c] += 1
+            if count[c] == plan.splits:  # the last block of this (pair, tile)
+                for n, qi in enumerate(qrows):
+                    acc = (np.float32(np.inf), 0, np.float32(np.inf), 0)
+                    for k in range(plan.splits):
+                        acc = _merge(acc, part[(p * plan.splits + k) * k1 + qi])
+                    out[p, qi] = (acc[1], acc[3])
+                count[c] = 0
+    return out, writes, count
+
+
+@pytest.mark.parametrize("k1,k2", [(100, 333), (300, 2100), (1, 64)])
+def test_replayed_batched_merge_gives_each_pairs_plain_indices(k1, k2):
+    """Three pairs in one launch: every pair's indices are the plain
+    version's of that pair alone (ties planted per pair), every scratch
+    slot of every (pair, split, query) is written once, and every (pair,
+    query tile) counter is left at zero for the next launch."""
+    banks = [_tied_banks(k1, k2, k1 + k2 + p) for p in range(3)]
+    d1, d2, valid = (torch.from_numpy(np.stack([b[i] for b in banks])) for i in range(3))
+    _, want = cuda_match.top2_distances_plain(d1, d2, valid)
+    assert want.shape == (3, k1, 2)
+    dist2s = []
+    for p in range(3):
+        _, one = cuda_match.top2_distances_plain(d1[p], d2[p], valid[p])
+        assert torch.equal(want[p], one)
+        tt = torch.sum(d2[p] * d2[p], dim=-1)
+        qq = torch.sum(d1[p] * d1[p], dim=-1, keepdim=True)
+        dist2 = torch.clamp(qq + tt - 2.0 * (d1[p] @ d2[p].T), min=0.0)
+        dist2s.append(torch.where(valid[p][None, :], dist2, torch.inf).numpy())
+    plan = cuda_match.top2_plan(k1, k2)
+    got, writes, count = _replay_batch(dist2s, plan, k1, k2)
+    np.testing.assert_array_equal(got, want.numpy())
+    assert (writes == 1).all() and not count.any()

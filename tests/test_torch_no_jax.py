@@ -24,16 +24,23 @@ def _env():
 REFERENCE = "spherical_bundle_adjuster_tpu"
 
 
-def _chip_smoke_imports():
-    """The import statements of chip_smoke.py, as source lines."""
-    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
-    return [ast.unparse(n) for n in tree.body
-            if isinstance(n, ast.Import)
-            or (isinstance(n, ast.ImportFrom) and n.module != "__future__")]
+# the port's scripts at the repo root
+SCRIPTS = ("chip_smoke.py", "card_rounding.py")
+
+
+def _script_imports():
+    """The import statements of the scripts, as source lines."""
+    lines = []
+    for name in SCRIPTS:
+        tree = ast.parse((ROOT / name).read_text())
+        lines += [ast.unparse(n) for n in tree.body
+                  if isinstance(n, ast.Import)
+                  or (isinstance(n, ast.ImportFrom) and n.module != "__future__")]
+    return lines
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port and what chip_smoke.py imports
+    """Importing every module of the port and what its scripts import
     loads neither jax nor any module of the JAX package."""
     mods = sorted(
         "spherical_bundle_adjuster_tpu_torch." + ".".join(p.relative_to(PKG).with_suffix("").parts)
@@ -43,7 +50,7 @@ def test_port_imports_no_jax():
     code = (
         "import sys, importlib\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
-        + "".join(line + "\n" for line in _chip_smoke_imports())
+        + "".join(line + "\n" for line in _script_imports())
         + "bad = [m for m in sys.modules if m in ('jax', %r)\n"
         "       or m.startswith(('jax.', %r))]\n" % (REFERENCE, REFERENCE + ".")
         + "assert not bad, bad\n"
@@ -56,9 +63,9 @@ def test_port_imports_no_jax():
 
 
 def test_no_file_of_the_port_mentions_a_jax_import():
-    """No import statement of the port or chip_smoke.py names jax or the
+    """No import statement of the port or its scripts names jax or the
     JAX package (relative imports stay inside the port)."""
-    files = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = list(PKG.rglob("*.py")) + [ROOT / name for name in SCRIPTS]
     for f in files:
         for node in ast.walk(ast.parse(f.read_text())):
             if isinstance(node, ast.Import):

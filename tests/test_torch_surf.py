@@ -89,14 +89,6 @@ def test_detect_batch_equals_single_bands(gray):
         torch.testing.assert_close(d_b[i], d_s[0])
 
 
-def test_unported_surf_modes_raise(gray):
-    g = torch.from_numpy(gray)[None]
-    for cfg in (dataclasses.replace(TCFG, descriptor_interp="bilinear"),
-                dataclasses.replace(TCFG, laplacian_mode="gather")):
-        with pytest.raises(NotImplementedError):
-            tsurf.detect_and_describe(g, cfg)
-
-
 def test_cuda_wrappers_reject_cpu_tensors(gray):
     """The kernel wrappers check their inputs before any build or launch."""
     ii = _ii(gray)

@@ -248,13 +248,74 @@ def test_plans_at_the_2k_shapes_fit_the_card():
 def test_integral_image_rows_are_aligned(w):
     """integral_image's rows start 16-byte aligned (the layout the kernels
     stage with 16-byte copies); a dense copy of it has the same values
-    and is not in that layout unless W+1 is a multiple of 4."""
+    (the float64 prefix sums rounded once to float32) and is not in that
+    layout unless W+1 is a multiple of 4."""
     g = torch.from_numpy(np.random.default_rng(w).uniform(0, 255, (2, 5, w)).astype(np.float32))
     ii = integral.integral_image(g)
     assert ii.shape == (2, 6, w + 1) and ii.stride(2) == 1
     assert ii.stride(1) % integral.ROW_ALIGN == 0 and ii.stride(0) == 6 * ii.stride(1)
     assert integral.is_row_aligned(ii)
     dense = ii.contiguous()
-    assert torch.equal(dense[:, 1:, 1:], torch.cumsum(torch.cumsum(g, 1), 2))
+    assert torch.equal(dense[:, 1:, 1:], torch.cumsum(torch.cumsum(g.double(), 1), 2).float())
     assert not dense[:, 0].any() and not dense[:, :, 0].any()
     assert integral.is_row_aligned(dense) == ((w + 1) % integral.ROW_ALIGN == 0)
+
+
+# The front ends' and the batch's launch shapes: (bands, rows, width,
+# octaves). At 512x1024, bands of 128 x 1024 (3 octaves): one pair on the
+# parity ladder (8) and on the dense ladder (16), the dense re-run of 2
+# pairs (32), and a pass of 8, 16, 32 and all 64 pairs of a batch (64,
+# 128, 256, 512); the ERP front end at 2K: 2 images of 1024 x 2048; the
+# cubemap front end at 2K: 2 strips of 600 x 3600 (4 octaves).
+LAUNCHES = ([(b, 128, 1024, 3) for b in (8, 16, 32, 64, 128, 256, 512)]
+            + [(2, 1024, 2048, 4), (2, 600, 3600, 4)])
+
+
+@pytest.mark.parametrize("b,h,w,n_octaves", LAUNCHES)
+def test_plans_at_the_batch_and_front_end_shapes(b, h, w, n_octaves):
+    """Every layer and scale finds a tiling whose buffers fit an H100
+    block, the tiles cover each band's grid, and the (part, band) output
+    planes tile the launch's output buffer without overlap, inside K1's
+    32-bit offsets."""
+    cfg = SurfConfig(n_octaves=n_octaves)
+    n_l = cfg.n_octave_layers + 2
+    table, shapes, n_tiles, smem = cuda_surf._det_plan(n_octaves, n_l, b, h, w)
+    htable, h_tiles, hsmem = cuda_surf._haar_plan(n_octaves, cfg.n_octave_layers, b, h, w)
+    assert smem <= 232448 and hsmem <= 232448
+    total = sum(int(np.prod(s)) for s in shapes)
+    assert total < 2**31 and b * len(htable) * h * w < 2**31
+    for parts, tiles, size in ((_parts(table), n_tiles, total),
+                               (_parts(htable), h_tiles, b * len(htable) * h * w)):
+        first, planes = 0, []
+        for p in parts:
+            assert p["first"] == first
+            first += b * p["nty"] * p["ntx"]
+            assert (p["nty"] - 1) * p["ty"] < p["oh"] <= p["nty"] * p["ty"]
+            assert (p["ntx"] - 1) * p["tx"] < p["ow"] <= p["ntx"] * p["tx"]
+            planes += [(p["out_off"] + band * p["band_stride"], p["oh"] * p["ow"])
+                       for band in range(b)]
+        assert first == tiles
+        planes.sort()
+        assert planes[0][0] == 0 and sum(n for _, n in planes) == size
+        assert all(a + n == c for (a, n), (c, _) in zip(planes, planes[1:]))
+
+
+@pytest.mark.parametrize("b,h,w,n_octaves", LAUNCHES)
+def test_staging_plans_at_the_batch_and_front_end_shapes(b, h, w, n_octaves, monkeypatch):
+    """One band replayed with the tiles its whole launch gives it (the
+    tile size grows with the launch's outputs), bit for bit against the
+    plain versions."""
+    grow = cuda_surf._max_outputs
+    monkeypatch.setattr(cuda_surf, "_max_outputs", lambda total: grow(total * b))
+    cuda_surf._det_plan.cache_clear()
+    cuda_surf._haar_plan.cache_clear()
+    try:
+        cfg = SurfConfig(n_octaves=n_octaves)
+        ii = _ii(1, h, w, seed=h + w)
+        for o, got in enumerate(det_emulated(ii.numpy(), cfg)):
+            np.testing.assert_array_equal(got, cuda_surf.det_octave_plain(ii, o, cfg).numpy())
+        for got, want in zip(haar_emulated(ii.numpy(), cfg), cuda_surf.haar_trace_maps_plain(ii, cfg)):
+            assert torch.equal(got, want)
+    finally:
+        cuda_surf._det_plan.cache_clear()
+        cuda_surf._haar_plan.cache_clear()

@@ -108,14 +108,6 @@ def test_run_two_view_parity(scene):
     assert err_j < 2.5 and err_t < 2.5, (err_j, err_t)
 
 
-def test_unported_entry_points_raise(scene):
-    _, _, _, _, (lt, rt, _) = scene
-    with pytest.raises(NotImplementedError):
-        ttv.run_two_view(lt, rt, torch.Generator().manual_seed(0), TCFG, frontend="cubemap")
-    with pytest.raises(NotImplementedError):
-        ttv.run_two_view_batch(lt[None], rt[None], None, TCFG)
-
-
 def test_auto_ladder_reruns_dense_only_when_short(scene):
     """auto == parity when the parity ladder finds enough matches."""
     _, _, _, _, (lt, rt, _) = scene
