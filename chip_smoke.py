@@ -45,7 +45,26 @@ Phases, each printing its own line:
      512 gates;
  10. frontends_2k: compare_frontends (erp, band, cubemap with cube 600) on
      one 1024x2048 pair, each front end against the port's own CPU run of
-     it on the same pair, the band front end on the 2K compat gates.
+     it on the same pair, the band front end on the 2K compat gates;
+ 11. the global solvers, each on a synthetic problem built in numpy from
+     a seed with the JAX tests' recipes and gated on those tests' gates:
+     multiview_dense_10kf (solve_multiview, C = 10 keyframes, L = 9216,
+     auto -> dense), multiview_pcg_256kf (C = 256, L = 8192, PCG) and
+     multiview_pcg_1024kf (C = 1024, L = 131072, PCG); pose_graph_100kf
+     (optimize_pose_graph, 100 nodes, 8 closures, auto -> PCG) and
+     pose_graph_1024kf (1024 nodes, 64 closures, PCG). Each reports ms
+     per solve (median of 3 after a warm-up) and per GN step, CG
+     iterations per GN step, torch calls, device kernels, wall ms and
+     device-busy ms per CG iteration (CUDA events and torch.profiler over
+     16 and 80 iterations), one GN step split into its parts (wall and
+     device-busy ms each), the device-busy share of a solve, host syncs
+     per solve, peak memory, whether the runs were bit-identical, for the
+     256- and 100-keyframe phases the gap to the port's own CPU run, for
+     the multiview PCG phases the fixed-order segment sum's time against
+     index_add_'s, and for the pose graphs chain_with_loop_closures built
+     on the card from numpy odometry (held against its CPU build). These
+     phases launch no hand-written kernel: the reference computes them in
+     plain XLA.
 
 Each pipeline phase sets the kernels' launch counts to 0 before its
 measured runs and fails if a kernel of the path was not launched.
@@ -56,20 +75,27 @@ Then one JSON line with every kernel's numbers, and a last line
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
 import os
 import subprocess
 import sys
+import warnings
 
 import numpy as np
 import torch
+from torch.autograd import DeviceType
+from torch.overrides import TorchFunctionMode
 
 from spherical_bundle_adjuster_tpu_torch import kernel_times
-from spherical_bundle_adjuster_tpu_torch.models import evaluation, frontend, twoview
-from spherical_bundle_adjuster_tpu_torch.ops import cuda_match, cuda_surf, integral, kernels, warp
-from spherical_bundle_adjuster_tpu_torch.solver import epipolar
+from spherical_bundle_adjuster_tpu_torch.models import evaluation, frontend, multiview, twoview
+from spherical_bundle_adjuster_tpu_torch.ops import (
+    cuda_match, cuda_surf, integral, kernels, segment, warp,
+)
+from spherical_bundle_adjuster_tpu_torch.solver import epipolar, pose_graph
+from spherical_bundle_adjuster_tpu_torch.solver import pcg as pcg_mod
 from spherical_bundle_adjuster_tpu_torch.utils import synthetic
 from spherical_bundle_adjuster_tpu_torch.utils.config import (
     DENSE_BAND_PITCHES, FrontendConfig, MatchConfig, PipelineConfig, SurfConfig,
@@ -842,6 +868,474 @@ def phase_frontends(dev):
     return {name: r["launches"] for name, r in rows.items()}
 
 
+# ---------------------------------------------------------------------------
+# The global solvers: multi-keyframe Schur BA and the pose graph, on
+# synthetic problems built in numpy from a seed with the recipes of
+# tests/test_multiview.synth_problem and
+# tests/test_pose_graph.TestScaledPoseGraph._make_graph.
+
+# (name, cameras C, landmarks L, observations per landmark P, pose noise,
+#  seed, solve_multiview keywords)
+MULTIVIEW_PHASES = (
+    # config #3: 10 keyframes, 9 consecutive pairs x 1024 match slots
+    ("multiview_dense_10kf", 10, 9216, 6, 0.05, 0, dict(num_iters=15)),
+    # tests/test_multiview.py::test_c256_l8192_sharded_pcg, on one device
+    ("multiview_pcg_256kf", 256, 8192, 4, 0.03, 3,
+     dict(num_iters=8, linear_solver="pcg", cg_iters=60, cg_tol=1e-5)),
+    # config #5 scale
+    ("multiview_pcg_1024kf", 1024, 131072, 6, 0.03, 5,
+     dict(num_iters=8, linear_solver="pcg", cg_iters=60, cg_tol=1e-5)),
+)
+# (name, nodes, loop closures, seed, optimize_pose_graph keywords)
+POSE_GRAPH_PHASES = (
+    ("pose_graph_100kf", 100, 8, 1, dict(num_iters=15)),  # config #4
+    ("pose_graph_1024kf", 1024, 64, 3,
+     dict(num_iters=15, linear_solver="pcg", cg_iters=120)),
+)
+CPU_GAP_PHASES = ("multiview_pcg_256kf", "pose_graph_100kf")
+# the JAX tests' gates: test_converges_from_noisy_init (dense),
+# test_c256_l8192_sharded_pcg (PCG), test_512_chain_32_closures_pcg
+GATE_MV_DENSE = dict(cost_ratio=1e-6, max_rot_err_deg=0.5, max_t_err=0.05)
+GATE_MV_PCG = dict(cost_ratio=1e-4, median_rot_err_deg=0.2, median_t_err=0.02)
+GATE_PG = dict(cost_ratio=1e-4, median_t_err=0.02)
+# CG iterations of the two runs whose difference is read per CG iteration;
+# 64 iterations apart, so the host's noise (a few ms a call) stays small
+CG_PROBE = (16, 80)
+# chain_with_loop_closures' chained poses on the card against the CPU's:
+# 1023 chained float32 3x3 products round apart by a few float32 steps
+CHAIN_GAP_LIMIT = 1e-3
+
+
+def angle_axis_matrices(aa):
+    """(N, 3) angle-axis -> (N, 3, 3) rotation matrices, float64."""
+    aa = np.asarray(aa, np.float64)
+    th = np.linalg.norm(aa, axis=-1)[:, None, None]
+    k = aa / np.maximum(th[:, :, 0], 1e-30)
+    K = np.zeros(aa.shape[:1] + (3, 3))
+    K[:, 0, 1], K[:, 0, 2], K[:, 1, 2] = -k[:, 2], k[:, 1], -k[:, 0]
+    K = K - K.transpose(0, 2, 1)
+    return np.eye(3) + np.sin(th) * K + (1 - np.cos(th)) * K @ K
+
+
+def log_rotations(R):
+    """(N, 3, 3) -> (N, 3) angle-axis, float64 (angles below pi)."""
+    ax = np.stack([R[:, 2, 1] - R[:, 1, 2], R[:, 0, 2] - R[:, 2, 0], R[:, 1, 0] - R[:, 0, 1]], -1)
+    s = np.linalg.norm(ax, axis=-1) / 2
+    th = np.arctan2(s, (np.trace(R, axis1=1, axis2=2) - 1) / 2)
+    return ax * np.where(s > 1e-12, th / (2 * np.maximum(s, 1e-30)), 0.5)[:, None]
+
+
+def pose_errors(poses, poses_gt):
+    """Per camera: rotation error (deg) and translation error, float64."""
+    poses = np.asarray(poses, np.float64)
+    rel = angle_axis_matrices(poses[:, :3]) @ angle_axis_matrices(poses_gt[:, :3]).transpose(0, 2, 1)
+    cos = (np.trace(rel, axis1=1, axis2=2) - 1) / 2
+    ang = np.degrees(np.arccos(np.clip(cos, -1, 1)))
+    return ang, np.linalg.norm(poses[:, 3:] - poses_gt[:, 3:], axis=-1)
+
+
+def synth_multiview(C, L, P, pose_noise, seed):
+    """tests/test_multiview.synth_problem (noise-free bearings) in numpy,
+    the same draws in the same order: cameras on a small trajectory,
+    landmarks on a shell, each seen by P distinct random cameras. Returns
+    (the problem's fields with a noisy init, the ground-truth poses)."""
+    rng = np.random.default_rng(seed)
+    aa = rng.uniform(-0.1, 0.1, (C, 3))
+    aa[0] = 0
+    t = rng.uniform(-0.3, 0.3, (C, 3))
+    t[0] = 0
+    poses_gt = np.concatenate([aa, t], axis=-1).astype(np.float32)
+    X = rng.normal(size=(L, 3))
+    X = (X / np.linalg.norm(X, axis=-1, keepdims=True) * rng.uniform(3, 7, (L, 1))).astype(np.float32)
+    obs_cam = np.stack([rng.choice(C, P, replace=False) for _ in range(L)]).astype(np.int32)
+    R = angle_axis_matrices(poses_gt[:, :3])
+    p = np.einsum("lpij,lj->lpi", R[obs_cam], X.astype(np.float64)) - poses_gt[obs_cam, 3:]
+    b = (p / np.linalg.norm(p, axis=-1, keepdims=True)).astype(np.float32)
+    poses0 = poses_gt + rng.normal(scale=pose_noise, size=poses_gt.shape).astype(np.float32)
+    poses0[0] = poses_gt[0]
+    X0 = X + rng.normal(scale=0.1, size=X.shape).astype(np.float32)
+    return (poses0, X0, obs_cam, b, np.ones((L, P), bool), np.ones(L, bool)), poses_gt
+
+
+def synth_pose_graph(n, n_closures, seed, init_noise=(0.05, 0.2)):
+    """tests/test_pose_graph.TestScaledPoseGraph._make_graph in numpy, the
+    same draws in the same order: a chain of n random poses with exact
+    relative-pose edges and n_closures closures 5-9 nodes apart. Returns
+    (the graph's fields with a noisy init, the ground-truth poses)."""
+    rng = np.random.default_rng(seed)
+    gt = np.concatenate([rng.uniform(-0.5, 0.5, (n, 3)), rng.uniform(-2.0, 2.0, (n, 3))],
+                        axis=-1).astype(np.float32)
+    gt[0] = 0.0
+    ei, ej = np.arange(n - 1), np.arange(1, n)
+    if n_closures:
+        ci = rng.integers(0, n - 10, n_closures)
+        cj = ci + rng.integers(5, 10, n_closures)
+        ei, ej = np.concatenate([ei, ci]), np.concatenate([ej, cj])
+    R = angle_axis_matrices(gt[:, :3])
+    R_rel = R[ej] @ R[ei].transpose(0, 2, 1)
+    t_rel = gt[ej, 3:] - np.einsum("eij,ej->ei", R_rel, gt[ei, 3:].astype(np.float64))
+    init = gt + np.concatenate([rng.normal(scale=init_noise[0], size=(n, 3)),
+                                rng.normal(scale=init_noise[1], size=(n, 3))],
+                               axis=-1).astype(np.float32)
+    init[0] = gt[0]
+    fields = (init, ei.astype(np.int32), ej.astype(np.int32), log_rotations(R_rel).astype(np.float32),
+              t_rel.astype(np.float32), np.ones(len(ei), np.float32))
+    return fields, gt
+
+
+def solver_gates(kind, c0, costs, poses, poses_gt):
+    """The gate values of a solve (costs: its cost trace; c0: the cost at
+    its init) and the failed gates' messages."""
+    ang, terr = pose_errors(poses, poses_gt)
+    c1 = float(costs[-1])
+    if kind == "multiview_dense":
+        gate = GATE_MV_DENSE
+        vals = dict(cost0=c0, cost=c1, cost_limit=gate["cost_ratio"] * max(c0, 1.0),
+                    max_rot_err_deg=float(ang.max()), max_t_err=float(terr.max()))
+        fails = [k for k, bad in (("cost", c1 > vals["cost_limit"]),
+                                  ("max_rot_err_deg", vals["max_rot_err_deg"] >= gate["max_rot_err_deg"]),
+                                  ("max_t_err", vals["max_t_err"] >= gate["max_t_err"])) if bad]
+    else:
+        gate = GATE_MV_PCG if kind == "multiview_pcg" else GATE_PG
+        first = float(costs[0])
+        vals = dict(first_cost=first, cost=c1, cost_ratio=c1 / first,
+                    median_rot_err_deg=float(np.median(ang)), max_rot_err_deg=float(ang.max()),
+                    median_t_err=float(np.median(terr)), max_t_err=float(terr.max()))
+        checks = [("cost_ratio", not vals["cost_ratio"] < gate["cost_ratio"]),
+                  ("median_t_err", not vals["median_t_err"] < gate["median_t_err"])]
+        if kind == "multiview_pcg":
+            checks.append(("median_rot_err_deg",
+                           not vals["median_rot_err_deg"] < gate["median_rot_err_deg"]))
+        fails = [k for k, bad in checks if bad]
+    return dict(gates=gate, **vals), fails
+
+
+class CallCount(TorchFunctionMode):
+    """Counts the torch calls made under it (top-level calls only)."""
+
+    def __init__(self):
+        super().__init__()
+        self.calls = 0
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        self.calls += 1
+        return func(*args, **(kwargs or {}))
+
+
+def event_ms(fn, reps=3):
+    """Median wall ms of fn() over `reps` calls, each between two CUDA
+    events with the card idle before it (the host's launch time
+    included)."""
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def device_trace(fn):
+    """fn() under torch.profiler: the device activities it ran (kernels,
+    copies, fills) and the sum of their durations in ms (None, None when
+    the profiler traced nothing on the card). Everything runs on one
+    stream, so the sum is the time the card was busy."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not ev:
+        return None, None
+    return len(ev), sum(e.time_range.elapsed_us() for e in ev) / 1e3
+
+
+def per_cg_iteration(run):
+    """Torch calls, device kernels, wall ms and device-busy ms per CG
+    iteration of run(cg_iters) (one GN step with cg_tol 0, so every
+    iteration runs): the difference between runs of CG_PROBE[0] and
+    CG_PROBE[1] iterations, over the iterations between them. Wall ms:
+    medians of 5 calls of each, in turns."""
+    calls, kernels_, busy, walls = [], [], [], ([], [])
+    for k in CG_PROBE:
+        with CallCount() as cc:
+            run(k)
+        torch.cuda.synchronize()
+        calls.append(cc.calls)
+        n, ms = device_trace(lambda: run(k))
+        kernels_.append(n)
+        busy.append(ms)
+    for _ in range(5):
+        for k, w in zip(CG_PROBE, walls):
+            w.append(event_ms(lambda: run(k), reps=1))
+    traced = kernels_[1] is not None
+
+    def per(v):
+        return (v[1] - v[0]) / (CG_PROBE[1] - CG_PROBE[0])
+
+    return dict(torch_calls_per_cg_iter=per(calls),
+                kernels_per_cg_iter=per(kernels_) if traced else None,
+                ms_per_cg_iter=per([float(np.median(w)) for w in walls]),
+                device_busy_ms_per_cg_iter=per(busy) if traced else None)
+
+
+def gn_step_split(parts):
+    """Wall ms (median of 3) and device-busy ms of each part of one GN
+    step, `parts` a list of (name, fn) run in order, after a warm-up."""
+    for _, fn in parts:
+        fn()
+    out = {}
+    for name, fn in parts:
+        n, busy = device_trace(fn)
+        out[name] = dict(ms=event_ms(fn), device_busy_ms=busy, device_activities=n)
+    return out
+
+
+def host_syncs(fn):
+    """fn() and the number of host syncs it made, as torch's sync debug
+    mode warns of them (each blocking copy between host and card, and
+    each read of a card value on the host)."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("called a synchronizing CUDA operation" in str(w.message) for w in caught)
+
+
+@contextlib.contextmanager
+def recorded_cg_iters():
+    """Records the iterations of every solver.pcg.pcg call made inside."""
+    calls, orig = [], pcg_mod.pcg
+
+    def recording(*args, **kwargs):
+        out = orig(*args, **kwargs)
+        calls.append(out.iters)
+        return out
+
+    pcg_mod.pcg = recording
+    try:
+        yield calls
+    finally:
+        pcg_mod.pcg = orig
+
+
+def solver_run(solve, inputs, num_iters):
+    """The solver phases' common readings of solve(inputs) -> (result,
+    costs): the first call after a warm-up with its host syncs, peak memory
+    and CG iterations per GN step, then 3 timed calls, each against the
+    first bit for bit."""
+    solve(inputs)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with recorded_cg_iters() as cg:
+        (first, syncs) = host_syncs(lambda: solve(inputs))
+        torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    times, gaps = [], []
+    for _ in range(3):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        out = solve(inputs)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+        gaps.append(max((a - b).abs().max().item()
+                        for a, b in zip((*out[0], out[1]), (*first[0], first[1]))
+                        if a.is_floating_point()))
+    ms = float(np.median(times))
+    cg_per_gn = [int(c) for c in cg]
+    n_dev, busy_ms = device_trace(lambda: solve(inputs))
+    return first, dict(
+        device_activities_per_solve=n_dev, device_busy_ms_per_solve=busy_ms,
+        device_busy_share=busy_ms / ms if busy_ms is not None else None,
+        solve_ms=times, median_solve_ms=ms, ms_per_gn_step=ms / num_iters,
+        cg_iters_per_gn_step=cg_per_gn or None,
+        mean_cg_iters_per_gn_step=float(np.mean(cg_per_gn)) if cg_per_gn else None,
+        host_syncs_per_solve=syncs, peak_memory_gb=peak_gb,
+        bit_identical_runs=all(g == 0 for g in gaps), max_gap_between_runs=max(gaps))
+
+
+def segment_sum_cost(prob, rd):
+    """The fixed-order segment sum (ops/segment) against index_add_ (the
+    atomics it replaces) at a PCG phase's shapes: the matvec's (L*P, 6)
+    and the camera sums' (L*P, 84) by camera. Device and wall ms per call,
+    whether two index_add_ runs gave the same bits, and the extra time per
+    GN step (one camera sum and one matvec sum per CG iteration) as a
+    share of the measured GN step."""
+    C, ids = prob.poses.shape[0], prob.obs_cam.reshape(-1)
+    seg = segment.segments(ids, C)
+    g = torch.Generator(ids.device).manual_seed(SEED)
+    out, extra_ms = {}, 0.0
+    for name, width, per_gn in (("camera_sums", 84, 1),
+                                ("matvec", 6, rd["mean_cg_iters_per_gn_step"])):
+        data = torch.randn(ids.numel(), width, device=ids.device, generator=g)
+
+        def fixed():
+            return segment.segment_sum(data, seg)
+
+        def atomic():
+            return torch.zeros(C, width, device=ids.device).index_add_(0, ids, data)
+
+        runs = [atomic() for _ in range(4)]
+        fixed_ms, fixed_wall = kernel_times.device_ms(fixed)
+        atomic_ms, atomic_wall = kernel_times.device_ms(atomic)
+        out[name] = dict(fixed_ms=fixed_ms, fixed_wall_ms=fixed_wall, index_add_ms=atomic_ms,
+                         index_add_wall_ms=atomic_wall,
+                         index_add_runs_bit_identical=all(torch.equal(r, runs[0]) for r in runs),
+                         index_add_max_gap_between_runs=max((r - runs[0]).abs().max().item()
+                                                            for r in runs),
+                         fixed_vs_index_add_max_gap=(fixed() - runs[0]).abs().max().item())
+        extra_ms += per_gn * max(fixed_ms - atomic_ms, fixed_wall - atomic_wall)
+    return dict(segment_sum_vs_index_add=out, fixed_order_extra_ms_per_gn_step=extra_ms,
+                fixed_order_share_of_gn_step=extra_ms / rd["ms_per_gn_step"])
+
+
+def multiview_split(prob, solver, kw):
+    """One GN step of solve_multiview at the init, in its parts: the
+    Schur pass (Jacobians, landmark blocks, camera sums), the camera
+    solve, and the whole step with the new cost (the Schur pass, the
+    camera solve, back-substitution and total_cost)."""
+    index = multiview.obs_index(prob, solver)
+    lam = torch.tensor(1e-3, device=prob.poses.device)
+    cg = (kw.get("cg_iters", 100), kw.get("cg_tol", 1e-5))
+    parts = multiview._schur_parts(prob, lam, index)
+    if solver == "dense":
+        def cameras():
+            return multiview._solve_cameras_dense(parts, prob, lam, True, index)
+    else:
+        def cameras():
+            return multiview._solve_cameras_pcg(parts, prob, lam, True, *cg, index)
+
+    def step():
+        poses, landmarks = multiview.gauss_newton_step(prob, lam, True, solver, *cg, index)
+        return multiview.total_cost(prob._replace(poses=poses, landmarks=landmarks))
+
+    return gn_step_split([("schur_parts", lambda: multiview._schur_parts(prob, lam, index)),
+                          ("camera_solve", cameras), ("whole_step", step)])
+
+
+def pose_graph_split(g, solver, kw):
+    """One GN step of optimize_pose_graph at the init, in its parts: the
+    per-edge residuals and Jacobian blocks, the linear solve (gradient,
+    block diagonal and the dense or PCG step), and the new cost."""
+    index = pose_graph.graph_index(g, solver)
+    lam = torch.tensor(1e-3, device=g.poses.device)
+    n = g.poses.shape[0]
+    robust = (kw.get("robust_delta"), kw.get("tran_weight", 1.0))
+    res, Ji, Jj = pose_graph._edge_blocks(g.poses, g, *robust)
+    if solver == "dense":
+        def linear():
+            return pose_graph._gn_step_dense(index, res, Ji, Jj, lam, True, n)
+    else:
+        def linear():
+            return pose_graph._gn_step_pcg(g, index, res, Ji, Jj, lam, True, n,
+                                           kw.get("cg_iters", 100), kw.get("cg_tol", 1e-5))
+    dp = linear()
+    return gn_step_split([("edge_blocks", lambda: pose_graph._edge_blocks(g.poses, g, *robust)),
+                          ("linear_solve", linear),
+                          ("new_cost", lambda: pose_graph._edge_cost(g.poses + dp, g, *robust))])
+
+
+def chain_check(fields, n):
+    """chain_with_loop_closures on the phase's edges (the first n - 1 the
+    odometry, the rest closures), from numpy, so on the card by default:
+    every field on the card, its chained poses against the port's CPU
+    build of the same graph (CHAIN_GAP_LIMIT), and its wall ms."""
+    _, ei, ej, rot, tran, _ = fields
+    closures = [(int(i), int(j), r, t) for i, j, r, t in
+                zip(ei[n - 1:], ej[n - 1:], rot[n - 1:], tran[n - 1:])]
+
+    def build():
+        return pose_graph.chain_with_loop_closures(rot[:n - 1], tran[:n - 1], closures,
+                                                   closure_weight=2.0)
+
+    card = build()
+    on_card = all(t.device.type == "cuda" for t in card)
+    require(on_card, "chain_with_loop_closures left the card for numpy input")
+    cpu = pose_graph.chain_with_loop_closures(torch.from_numpy(rot[:n - 1]),
+                                              torch.from_numpy(tran[:n - 1]), closures,
+                                              closure_weight=2.0)
+    gap = max((a.cpu() - b).abs().max().item() for a, b in zip(card, cpu)
+              if a.is_floating_point())
+    require(gap <= CHAIN_GAP_LIMIT, f"chain_with_loop_closures: card vs CPU gap {gap}")
+    return dict(on_card=on_card, card_vs_cpu_max_gap=gap, gap_limit=CHAIN_GAP_LIMIT,
+                ms=event_ms(build))
+
+
+def phase_multiview(dev, name, C, L, P, pose_noise, seed, kw):
+    fields, poses_gt = synth_multiview(C, L, P, pose_noise, seed)
+    prob = multiview.problem_from_numpy(fields, dev)
+    solver = "dense" if kw.get("linear_solver", "auto") == "auto" and C <= 32 else "pcg"
+    (solved, costs), rd = solver_run(lambda p: multiview.solve_multiview(p, **kw), prob,
+                                     kw["num_iters"])
+    c0 = float(multiview.total_cost(prob))
+    vals, fails = solver_gates(f"multiview_{solver}", c0, costs.cpu().numpy(),
+                               solved.poses.cpu().numpy(), poses_gt)
+    extra = {}
+    if solver == "pcg":
+        pcg_kw = dict(kw, num_iters=1, cg_tol=0.0)
+        extra.update(per_cg_iteration(
+            lambda k: multiview.solve_multiview(prob, **dict(pcg_kw, cg_iters=k))))
+        extra.update(segment_sum_cost(prob, rd))
+    extra["gn_step_split"] = multiview_split(prob, solver, kw)
+    if name in CPU_GAP_PHASES:
+        extra.update(cpu_gap(lambda p: multiview.solve_multiview(p, **kw),
+                             multiview.problem_from_numpy(fields, "cpu"), solved, costs))
+    log(name, cameras=C, landmarks=L, obs_per_landmark=P, observations=L * P, seed=seed,
+        linear_solver=solver, solve_kwargs=kw, **vals, **rd, **extra)
+    require(not fails, f"{name}: gates failed: {fails}")
+
+
+def phase_pose_graph(dev, name, n, n_closures, seed, kw):
+    fields, poses_gt = synth_pose_graph(n, n_closures, seed)
+    g = pose_graph.graph_from_numpy(fields, dev)
+    solver = kw.get("linear_solver", "auto")
+    solver = ("dense" if n <= 64 else "pcg") if solver == "auto" else solver
+    (opt, costs), rd = solver_run(lambda gg: pose_graph.optimize_pose_graph(gg, **kw), g,
+                                  kw["num_iters"])
+    vals, fails = solver_gates("pose_graph", None, costs.cpu().numpy(), opt.poses.cpu().numpy(),
+                               poses_gt)
+    extra = {}
+    if solver == "pcg":
+        pcg_kw = dict(kw, num_iters=1, linear_solver="pcg", cg_tol=0.0)
+        extra.update(per_cg_iteration(
+            lambda k: pose_graph.optimize_pose_graph(g, **dict(pcg_kw, cg_iters=k))))
+    extra["gn_step_split"] = pose_graph_split(g, solver, kw)
+    extra["chain_with_loop_closures"] = chain_check(fields, n)
+    if name in CPU_GAP_PHASES:
+        extra.update(cpu_gap(lambda gg: pose_graph.optimize_pose_graph(gg, **kw),
+                             pose_graph.graph_from_numpy(fields, "cpu"), opt, costs))
+    log(name, nodes=n, edges=len(fields[1]), closures=n_closures, seed=seed,
+        linear_solver=solver, solve_kwargs=kw, **vals, **rd, **extra)
+    require(not fails, f"{name}: gates failed: {fails}")
+
+
+def cpu_gap(solve, cpu_inputs, card_result, card_costs):
+    """The same solve on the host's CPU: its largest pose gap to the
+    card's, and both final costs."""
+    torch.set_num_threads(os.cpu_count() or 1)
+    res, costs = solve(cpu_inputs)
+    return dict(cpu_max_pose_gap=(res.poses - card_result.poses.cpu()).abs().max().item(),
+                cpu_final_cost=float(costs[-1]), card_final_cost=float(card_costs[-1]))
+
+
+def phase_solvers(dev):
+    """The global solvers at the keyframe counts of configs #3-#5, each
+    gated on its JAX test's gates."""
+    _, n = host_syncs(lambda: torch.ones(1, device=dev).sum().item())
+    require(n == 1, f"the sync counter saw {n} syncs in one .item()")
+    for name, C, L, P, noise, seed, kw in MULTIVIEW_PHASES:
+        phase_multiview(dev, name, C, L, P, noise, seed, kw)
+    for name, n, k, seed, kw in POSE_GRAPH_PHASES:
+        phase_pose_graph(dev, name, n, k, seed, kw)
+
+
 def main():
     dev, smi = phase_device()
     phase_build()
@@ -855,6 +1349,7 @@ def main():
                  "batch_512x1024_auto": phase_batch_auto(dev),
                  "batch_512x1024_corrected": phase_batch_corrected(dev)}
     per_frontend = phase_frontends(dev)
+    phase_solvers(dev)
     for r, sym in zip(rows, ("sba_det_pyramid", "sba_haar_trace", "sba_top2")):
         r["launches"] = counts[sym]
         r["launches_per_pair"] = counts[sym] / N_PAIRS_2K

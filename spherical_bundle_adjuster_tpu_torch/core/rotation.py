@@ -84,6 +84,49 @@ def rotate_angle_axis(aa, v):
     return v * cos_t + wxv * s * theta + w * wdv * c
 
 
+def right_jacobian(r):
+    """(..., 3) -> (..., 3, 3) right Jacobian of SO(3), J_r(r) =
+    I - a [r]x + b [r]x^2 with a = (1 - cos th) / th^2 and
+    b = (th - sin th) / th^3: R(r + d) = R(r) exp([J_r(r) d]x) to first
+    order. Below th = 0.1 their Taylor series (to th^4) replace them:
+    th - sin th cancels catastrophically in float32 there."""
+    theta2 = torch.sum(r * r, dim=-1)[..., None, None]
+    small = theta2 < 1e-2
+    safe2 = torch.where(small, torch.ones_like(theta2), theta2)
+    safe = torch.sqrt(safe2)
+    a = torch.where(small, 0.5 - theta2 / 24.0 + theta2 * theta2 / 720.0,
+                    (1.0 - torch.cos(safe)) / safe2)
+    b = torch.where(small, 1.0 / 6.0 - theta2 / 120.0 + theta2 * theta2 / 5040.0,
+                    (safe - torch.sin(safe)) / (safe2 * safe))
+    K = skew(r)
+    return torch.eye(3, dtype=r.dtype, device=r.device) - a * K + b * (K @ K)
+
+
+def rotation_jacobian(r, x1):
+    """d/dr of x2 - (R(r) x1 - t): (..., M, 3, 3) = R [x1]x J_r(r) for r
+    (..., 3) and x1 (..., M, 3), with J_r the right Jacobian of SO(3)
+    (`right_jacobian`)."""
+    return (angle_axis_to_matrix(r)[..., None, :, :] @ skew(x1)
+            @ right_jacobian(r)[..., None, :, :])
+
+
+def right_jacobian_inverse(phi):
+    """(..., 3) -> (..., 3, 3) inverse of the right Jacobian, J_r^-1(phi) =
+    I + [phi]x / 2 + c [phi]x^2 with c = 1/th^2 - (1 + cos th) /
+    (2 th sin th): log(exp([phi]x) exp([d]x)) = phi + J_r^-1(phi) d to
+    first order. Below th = 0.1, c's Taylor series (to th^4) replaces it,
+    which cancels catastrophically in float32 there. Stable away from
+    th = pi, as matrix_to_angle_axis is."""
+    theta2 = torch.sum(phi * phi, dim=-1)[..., None, None]
+    small = theta2 < 1e-2
+    safe2 = torch.where(small, torch.ones_like(theta2), theta2)
+    safe = torch.sqrt(safe2)
+    c = torch.where(small, 1.0 / 12.0 + theta2 / 720.0 + theta2 * theta2 / 30240.0,
+                    1.0 / safe2 - (1.0 + torch.cos(safe)) / (2.0 * safe * torch.sin(safe)))
+    K = skew(phi)
+    return torch.eye(3, dtype=phi.dtype, device=phi.device) + 0.5 * K + c * (K @ K)
+
+
 def matrix_to_angle_axis(R):
     """(..., 3, 3) -> (..., 3) angle-axis (log map), stable away from pi."""
     trace = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]

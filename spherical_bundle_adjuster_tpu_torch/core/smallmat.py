@@ -1,5 +1,7 @@
-"""Small-matrix linear algebra: closed forms for 2x2 and 3x3 blocks, and a
-Cholesky solve for the small PSD systems of the joint solve.
+"""Small-matrix linear algebra: closed forms for 2x2 and 3x3 blocks, a
+Cholesky solve for the small PSD systems of the joint solve and of the
+dense camera and pose-graph systems, and the unrolled Cholesky of the
+block-Jacobi preconditioner's 6x6 blocks.
 
 Counterpart of the closed forms in spherical_bundle_adjuster_tpu/core/
 smallmat.py. Adjugate and Cramer forms are elementwise arithmetic over
@@ -87,3 +89,42 @@ def solve_psd(A, b):
     y = torch.linalg.solve_triangular(L, b[..., None], upper=False)
     x = torch.linalg.solve_triangular(L.transpose(-1, -2), y, upper=True)[..., 0]
     return torch.where((info == 0)[..., None], x, torch.nan)
+
+
+def cholesky_unrolled(A):
+    """Cholesky factor of small SPD (..., n, n) blocks, unrolled over the
+    static n in the reference's order of operations (core/smallmat.py).
+
+    Each pivot is clamped to 1e-30 before its square root, so a block that
+    is not positive definite still gives a finite factor where
+    `cholesky_ex` would give NaN; the block-Jacobi preconditioner relies
+    on that. Column j is computed for all rows below it at once."""
+    n = A.shape[-1]
+    L = torch.zeros_like(A)
+    for j in range(n):
+        s = A[..., j:, j]
+        for k in range(j):
+            s = s - L[..., j:, k] * L[..., j, k, None]
+        d = torch.sqrt(torch.clamp(s[..., 0], min=1e-30))
+        L[..., j, j] = d
+        L[..., j + 1:, j] = s[..., 1:] * (1.0 / d)[..., None]
+    return L
+
+
+def cholesky_solve_unrolled(L, b):
+    """Solve L L^T x = b for lower-triangular (..., n, n) L and (..., n) b
+    by unrolled forward and back substitution, in the reference's order."""
+    n = L.shape[-1]
+    y = [None] * n
+    for i in range(n):
+        s = b[..., i]
+        for k in range(i):
+            s = s - L[..., i, k] * y[k]
+        y[i] = s / L[..., i, i]
+    x = [None] * n
+    for i in reversed(range(n)):
+        s = y[i]
+        for k in range(i + 1, n):
+            s = s - L[..., k, i] * x[k]
+        x[i] = s / L[..., i, i]
+    return torch.stack(x, dim=-1)

@@ -208,27 +208,6 @@ def _depth_columns(d_pair, match_valid):
     return d_pair[..., 0], d_pair[..., 1]
 
 
-def rotation_jacobian(r, x1):
-    """d/dr of the residual x2 - (R(r) x1 - t): (..., M, 3, 3) =
-    R [x1]x J_r(r) for r (..., 3) and x1 (..., M, 3), where J_r(r) =
-    I - a [r]x + b [r]x^2 is the right Jacobian of SO(3), with
-    a = (1 - cos th) / th^2 and b = (th - sin th) / th^3. Below th = 0.1
-    their Taylor series (to th^4) replace them: th - sin th cancels
-    catastrophically in float32 there."""
-    theta2 = torch.sum(r * r, dim=-1)[..., None, None]
-    small = theta2 < 1e-2
-    safe2 = torch.where(small, torch.ones_like(theta2), theta2)
-    safe = torch.sqrt(safe2)
-    a = torch.where(small, 0.5 - theta2 / 24.0 + theta2 * theta2 / 720.0,
-                    (1.0 - torch.cos(safe)) / safe2)
-    b = torch.where(small, 1.0 / 6.0 - theta2 / 120.0 + theta2 * theta2 / 5040.0,
-                    (safe - torch.sin(safe)) / (safe2 * safe))
-    K = rotation.skew(r)
-    jr = torch.eye(3, dtype=r.dtype, device=r.device) - a * K + b * (K @ K)
-    R = rotation.angle_axis_to_matrix(r)
-    return R[..., None, :, :] @ rotation.skew(x1) @ jr[..., None, :, :]
-
-
 def solve_rotation(b1, b2, d_pair, r0, t, match_valid, cfg: BaConfig):
     """Rotation-only stage. d_pair: the (..., 2) pair (d1, d2) used for
     EVERY residual (reference-compat quirk) or per-match depths
@@ -239,7 +218,7 @@ def solve_rotation(b1, b2, d_pair, r0, t, match_valid, cfg: BaConfig):
 
     def residual_and_jacobian(r):
         res = reprojection_residual(b1, b2, d1, d2, r[..., None, :], t_)
-        return res, rotation_jacobian(r, x1)
+        return res, rotation.rotation_jacobian(r, x1)
 
     return _global_stage(r0, residual_and_jacobian, match_valid, cfg)
 
@@ -300,7 +279,7 @@ def solve_joint_schur(b1, b2, d0, r0, t0, match_valid, cfg: BaConfig, num_iters=
         res = residual_all(r, t, d)  # (..., M, 3)
         w = (huber_weight(res, cfg.huber_delta) * w_valid)[..., None, None]
         x1 = b1 * d[..., 0, None]
-        j_r = rotation_jacobian(r, x1)  # (..., M, 3, 3)
+        j_r = rotation.rotation_jacobian(r, x1)  # (..., M, 3, 3)
         Jc = torch.cat([j_r, eye3.expand(j_r.shape)], dim=-1)  # (..., M, 3, 6)
         rb1 = rotation.rotate_angle_axis(r[..., None, :].expand(x1.shape), b1.expand(x1.shape))
         Jd = torch.stack([-rb1, b2.expand(rb1.shape)], dim=-1)  # (..., M, 3, 2)

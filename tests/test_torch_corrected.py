@@ -228,7 +228,7 @@ def test_joint_schur_closed_form_jacobians():
     jd = np.asarray(jax.jacfwd(res, 1)(r0, d0))  # (M, 3, M, 2)
     m = np.arange(b1.shape[0])
     x1 = _t(b1) * _t(d0)[:, 0:1]
-    np.testing.assert_allclose(tlm.rotation_jacobian(_t(r0), x1).numpy(), jr, atol=2e-5)
+    np.testing.assert_allclose(trot.rotation_jacobian(_t(r0), x1).numpy(), jr, atol=2e-5)
     rb1 = trot.rotate_angle_axis(_t(r0).expand(b1.shape), _t(b1)).numpy()
     np.testing.assert_allclose(jd[m, :, m, 0], -rb1, atol=1e-6)
     np.testing.assert_allclose(jd[m, :, m, 1], np.asarray(b2), atol=1e-6)

@@ -1,10 +1,12 @@
 """The CUDA kernels K1, K2 and K3 against their plain PyTorch versions on
-the card. Marked `cuda`: without a GPU they skip (a CUDA kernel has no
-interpret mode); run them on the card with `python -m pytest tests -m cuda`."""
+the card, and the global solvers on the card against their CPU runs.
+Marked `cuda`: without a GPU they skip (a CUDA kernel has no interpret
+mode); run them on the card with `python -m pytest tests -m cuda`."""
 
 import numpy as np
 import pytest
 import torch
+from torch.overrides import TorchFunctionMode
 
 from spherical_bundle_adjuster_tpu_torch.ops import cuda_match, cuda_surf, integral
 from spherical_bundle_adjuster_tpu_torch.utils.config import (
@@ -331,3 +333,86 @@ def test_run_two_view_batch_on_the_card(dev):
         assert torch.equal(one.match_valid, out.match_valid[i])
         assert torch.equal(one.left_xy, out.left_xy[i]) and torch.equal(one.right_xy, out.right_xy[i])
         assert bool(out.ok[i])
+
+
+# The global solvers (plain PyTorch on the card): small problems from
+# chip_smoke.py's numpy recipes, each solver route.
+SOLVER_CASES = [
+    ("multiview", (8, 128, 4, 0.05, 2), dict(num_iters=8)),                      # auto -> dense
+    ("multiview", (40, 160, 4, 0.05, 1), dict(num_iters=8)),                     # auto -> pcg
+    ("pose_graph", (24, 4, 4), dict(num_iters=10)),                              # auto -> dense
+    ("pose_graph", (80, 6, 5), dict(num_iters=10, robust_delta=0.05, tran_weight=0.2)),  # pcg
+    ("pose_graph_chain", (80, 6, 5), dict(num_iters=10)),  # chain_with_loop_closures, pcg
+]
+
+
+def _solver_case(kind, args, kw, device):
+    import chip_smoke
+    from spherical_bundle_adjuster_tpu_torch.models import multiview
+    from spherical_bundle_adjuster_tpu_torch.solver import pose_graph
+
+    if kind == "multiview":
+        fields, _ = chip_smoke.synth_multiview(*args)
+        return multiview.problem_from_numpy(fields, device), lambda p: multiview.solve_multiview(p, **kw)
+    fields, _ = chip_smoke.synth_pose_graph(*args)
+
+    def solve(g):
+        return pose_graph.optimize_pose_graph(g, **kw)
+
+    if kind == "pose_graph":
+        return pose_graph.graph_from_numpy(fields, device), solve
+    # the same edges as odometry (the first n - 1) and closures, chained
+    n, (_, ei, ej, rot, tran, _) = args[0], fields
+    closures = [(int(i), int(j), r, t) for i, j, r, t in
+                zip(ei[n - 1:], ej[n - 1:], rot[n - 1:], tran[n - 1:])]
+    odo = [torch.as_tensor(x[:n - 1], device=device) for x in (rot, tran)]
+    return pose_graph.chain_with_loop_closures(*odo, closures, closure_weight=2.0,
+                                               odometry_weights=np.linspace(0.5, 2.0, n - 1)), solve
+
+
+@pytest.mark.parametrize("kind,args,kw", SOLVER_CASES)
+def test_solvers_on_the_card_match_the_cpu(dev, kind, args, kw):
+    """Poses within 1e-4 and final costs within 1e-3 relative (or 1e-9) of
+    the port's CPU run of the same problem; two runs on the card give the
+    same bits (the fixed-order segment sums)."""
+    inputs, solve = _solver_case(kind, args, kw, dev)
+    assert all(t.device.type == "cuda" for t in inputs)
+    out, costs = solve(inputs)
+    again, costs2 = solve(inputs)
+    torch.cuda.synchronize()
+    assert out.poses.device.type == "cuda" and costs.device.type == "cuda"
+    assert torch.equal(out.poses, again.poses) and torch.equal(costs, costs2)
+    cpu_inputs, _ = _solver_case(kind, args, kw, "cpu")
+    cpu, cpu_costs = solve(cpu_inputs)
+    np.testing.assert_allclose(out.poses.cpu().numpy(), cpu.poses.numpy(), atol=1e-4)
+    np.testing.assert_allclose(float(costs[-1]), float(cpu_costs[-1]), rtol=1e-3, atol=1e-9)
+
+
+class _CpuTensors(TorchFunctionMode):
+    """Records the torch calls that return a CPU tensor."""
+
+    def __init__(self):
+        super().__init__()
+        self.calls = []
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        outs = out if isinstance(out, (tuple, list)) else (out,)
+        if any(isinstance(o, torch.Tensor) and o.device.type == "cpu" for o in outs):
+            self.calls.append(getattr(func, "__name__", repr(func)))
+        return out
+
+
+@pytest.mark.parametrize("kind,args,kw", [SOLVER_CASES[1], SOLVER_CASES[3], SOLVER_CASES[4]])
+def test_solver_inputs_on_the_card_never_move_to_the_cpu(dev, kind, args, kw):
+    """Inputs built for the card and their solve stay there: no torch call
+    returns a CPU tensor, from the problem's build (problem_from_numpy,
+    graph_from_numpy, chain_with_loop_closures) to the solve's end (the
+    segment-sum orders are built on the device too)."""
+    _solver_case(kind, args, kw, dev)  # imports outside the watch
+    mode = _CpuTensors()
+    with mode:
+        inputs, solve = _solver_case(kind, args, kw, dev)
+        out, costs = solve(inputs)
+    assert mode.calls == []
+    assert all(t.device.type == "cuda" for t in (*out, costs))

@@ -145,7 +145,7 @@ def test_rotation_jacobian_matches_autodiff(data, angle):
     d1 = np.linspace(1.0, 6.0, b1.shape[0]).astype(np.float32)
     d2 = d1[::-1].copy()
     jj = jax.jacfwd(lambda rr: jlm.reprojection_residual(b1, b2, d1, d2, rr, t))(jnp.asarray(r))
-    jt = tlm.rotation_jacobian(_t(r), _t(b1) * _t(d1)[:, None])
+    jt = trot.rotation_jacobian(_t(r), _t(b1) * _t(d1)[:, None])
     np.testing.assert_allclose(jt.numpy(), np.asarray(jj), atol=2e-5)
 
 
