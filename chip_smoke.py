@@ -64,7 +64,21 @@ Phases, each printing its own line:
      index_add_'s, and for the pose graphs chain_with_loop_closures built
      on the card from numpy odometry (held against its CPU build). These
      phases launch no hand-written kernel: the reference computes them in
-     plain XLA.
+     plain XLA;
+ 12. merged tracks (models/tracks.build_multiview_problem into
+     solve_multiview): tracks_10kf (tests/test_tracks' recipe in numpy,
+     10 cameras x 1024 match slots a pair) and tracks_1024kf (1024
+     cameras x 128 slots), gated on test_ba_beats_pose_graph_only_10_
+     frames' gates (at 1024 keyframes, where the JAX package misses
+     them, on 1.5x its own errors); tracks_from_odometry: 8 frames
+     rendered along a turning, translating trajectory through
+     run_two_view_batch (K1, K2, K3), chain_with_loop_closures with a
+     closure and weights held on the card, then tracks and the BA, gated
+     on links in every pair, frame-k keypoints bit-identical in both
+     slots and a falling finite cost. Each build: ms, host syncs (none
+     allowed), torch calls, device-busy share, two builds bit-identical
+     and the card's build against the port's CPU build of the same
+     inputs.
 
 Each pipeline phase sets the kernels' launch counts to 0 before its
 measured runs and fails if a kernel of the path was not launched.
@@ -90,7 +104,9 @@ from torch.autograd import DeviceType
 from torch.overrides import TorchFunctionMode
 
 from spherical_bundle_adjuster_tpu_torch import kernel_times
-from spherical_bundle_adjuster_tpu_torch.models import evaluation, frontend, multiview, twoview
+from spherical_bundle_adjuster_tpu_torch.models import (
+    evaluation, frontend, multiview, tracks, twoview,
+)
 from spherical_bundle_adjuster_tpu_torch.ops import (
     cuda_match, cuda_surf, integral, kernels, segment, warp,
 )
@@ -1336,6 +1352,349 @@ def phase_solvers(dev):
         phase_pose_graph(dev, name, n, k, seed, kw)
 
 
+# ---------------------------------------------------------------------------
+# Cross-pair track merging (models/tracks) into the global BA: synthetic
+# consecutive-pair match tables built in numpy with the recipe of
+# tests/test_tracks._make_sequence_problem, and the match tables of a real
+# consecutive-pair batch on a rendered trajectory.
+
+# (name, cameras C, landmarks, match slots per pair = the window, window
+#  stride, solve_multiview keywords)
+TRACKS_PHASES = (
+    # config #3's shape (multiview_dense_10kf): 9 pairs x 1024 slots, L = 9216
+    ("tracks_10kf", 10, 2048, 1024, 128, dict(num_iters=25)),
+    # config #5's scale (multiview_pcg_1024kf): 1023 pairs x 128 slots,
+    # L = 130944; every landmark seen from 9 frames, capped at P = 6
+    ("tracks_1024kf", 1024, 1022 * 16 + 128, 128, 16,
+     dict(num_iters=8, linear_solver="pcg", cg_iters=60, cg_tol=1e-5)),
+)
+TRACKS_SEED = 1
+TRACKS_POSE_NOISE = (0.02, 0.08)  # rotation (rad), translation
+TRACKS_W, TRACKS_H = 1024, 512
+TRACKS_P = 6
+# tests/test_tracks.py::test_ba_beats_pose_graph_only_10_frames: the last
+# cost below the first, the mean rotation and the scale-aligned mean
+# translation error below half the noisy start's, a track of >= 4
+# observations
+GATE_TRACKS = dict(error_ratio=0.5, min_longest_track=4)
+# The JAX package misses those error gates on tracks_1024kf (8 PCG GN
+# steps from the noisy chain; tests/reference_solver_scale.py on the chip
+# host's CPU): mean rotation error 1.2957 deg (start 1.7964), translation
+# 0.2284 (start 0.1303). There the port is held to 1.5x the reference's
+# own errors.
+TRACKS_REFERENCE_ERRORS = {"tracks_1024kf": (1.2956821711419453, 0.22841546218861458)}
+TRACKS_REFERENCE_FACTOR = 1.5
+# one build against another of the same inputs (the card's against the
+# CPU's, the port's against the reference's): ints and bools exact,
+# bearings 2e-6, landmarks where the root's midpoint det > 1e-3 within
+# max(1e-4, 1e-6 / det) of their norm: det = 1 - (b1 . R^T b2)^2 cancels,
+# so one float32 step of the dot (6e-8) moves det by ~1.2e-7 and the
+# midpoint by that over det (the reference's float32 against the port's
+# float64 triangulation: gap x det <= 8.1e-7 on the 10-keyframe recipe)
+TRACKS_BEARING_ATOL = 2e-6
+TRACKS_LANDMARK_RTOL = 1e-4
+TRACKS_LANDMARK_DET_RTOL = 1e-6
+TRACKS_DET_MIN = 1e-3
+# tracks_from_odometry: frames along a translating, turning trajectory
+ODO_FRAMES = 8
+ODO_YAW_DEG = 3.0
+ODO_STEP = 0.25
+ODO_SEED = 11
+ODO_CLOSURE = (0, 2)
+CELL_SIZE = 0.5  # models/tracks' default grid cell (pixels)
+
+
+def synth_tracks(n_cams, n_landmarks, seed, pose_noise=TRACKS_POSE_NOISE, window=None,
+                 stride=None, slots=None, width=TRACKS_W, height=TRACKS_H):
+    """tests/test_tracks._make_sequence_problem in numpy, the same draws in
+    the same order: landmarks on a shell projected through a random
+    trajectory; pair k holds the landmarks [lo, lo + window) with lo =
+    min(k * stride, n_landmarks - window), in its first `window` of
+    `slots` match slots (frame k's pixel shared by pairs k-1 and k, as a
+    detector's). Window, stride and slots default to the recipe's (half
+    the landmarks, spread over the pairs; slots = landmarks). Returns
+    ((noisy poses, left_xy, right_xy, valid, pair_rot_aa, pair_tran), the
+    ground-truth poses): build_multiview_problem's inputs, with the
+    per-pair relative poses taken from the noisy chain."""
+    rng = np.random.default_rng(seed)
+    n_pairs = n_cams - 1
+    gt = np.concatenate([rng.uniform(-0.15, 0.15, (n_cams, 3)),
+                         np.cumsum(rng.uniform(-0.4, 0.4, (n_cams, 3)), axis=0)],
+                        axis=-1).astype(np.float32)
+    gt[0] = 0.0
+    X = rng.normal(size=(n_landmarks, 3))
+    X = (X / np.linalg.norm(X, axis=-1, keepdims=True)
+         * rng.uniform(4.0, 9.0, (n_landmarks, 1))).astype(np.float32)
+    R = angle_axis_matrices(gt[:, :3])
+    p = np.einsum("cij,lj->cli", R, X.astype(np.float64)) - gt[:, None, 3:]
+    b = p / np.linalg.norm(p, axis=-1, keepdims=True)
+    phi = np.mod(np.arctan2(b[..., 1], b[..., 0]), 2 * np.pi)
+    theta = np.arccos(np.clip(b[..., 2], -1.0, 1.0))
+    px = np.stack([width * phi / (2 * np.pi), height * theta / np.pi], -1)
+    px = px + rng.normal(scale=0.0, size=px.shape)  # the recipe's px_noise = 0 draw
+    win = window or max(n_landmarks // 2, 12)
+    stride = stride or max((n_landmarks - win) // max(n_pairs - 1, 1), 1)
+    m = slots or n_landmarks
+    left_xy = np.zeros((n_pairs, m, 2), np.float32)
+    right_xy = np.zeros((n_pairs, m, 2), np.float32)
+    valid = np.zeros((n_pairs, m), bool)
+    for k in range(n_pairs):
+        lo = min(k * stride, n_landmarks - win)
+        left_xy[k, :win] = px[k, lo:lo + win]
+        right_xy[k, :win] = px[k + 1, lo:lo + win]
+        valid[k, :win] = True
+    noisy = gt + np.concatenate([rng.normal(scale=pose_noise[0], size=(n_cams, 3)),
+                                 rng.normal(scale=pose_noise[1], size=(n_cams, 3))],
+                                axis=-1).astype(np.float32)
+    noisy[0] = gt[0]
+    Rn = angle_axis_matrices(noisy[:, :3])
+    R_rel = Rn[1:] @ Rn[:-1].transpose(0, 2, 1)
+    t_rel = noisy[1:, 3:] - np.einsum("kij,kj->ki", R_rel, noisy[:-1, 3:].astype(np.float64))
+    return (noisy, left_xy, right_xy, valid, log_rotations(R_rel).astype(np.float32),
+            t_rel.astype(np.float32)), gt
+
+
+def scaled_pose_errors(poses, gt):
+    """tests/test_tracks._pose_errors: the mean rotation error (deg) and
+    the mean translation error after the least-squares global scale
+    (bearing-only BA has a scale gauge)."""
+    ang, _ = pose_errors(poses, gt)
+    te, tg = np.asarray(poses, np.float64)[:, 3:], np.asarray(gt, np.float64)[:, 3:]
+    s = float(np.sum(te * tg) / max(np.sum(te * te), 1e-12))
+    return float(np.mean(ang)), float(np.mean(np.linalg.norm(s * te - tg, axis=-1)))
+
+
+def tracks_gates(costs, poses, noisy, gt, longest, limits=None):
+    """The gate values of a BA on merged tracks and the failed gates'
+    names. limits: absolute (rotation deg, translation) error limits in
+    place of GATE_TRACKS' ratio to the noisy start."""
+    r0, t0 = scaled_pose_errors(noisy, gt)
+    r1, t1 = scaled_pose_errors(poses, gt)
+    rot_lim, t_lim = limits or (GATE_TRACKS["error_ratio"] * r0, GATE_TRACKS["error_ratio"] * t0)
+    vals = dict(first_cost=float(costs[0]), cost=float(costs[-1]), rot_err_deg_start=r0,
+                rot_err_deg=r1, rot_err_limit=rot_lim, t_err_start=t0, t_err=t1,
+                t_err_limit=t_lim, longest_track=int(longest))
+    fails = [k for k, bad in (("cost", not vals["cost"] < vals["first_cost"]),
+                              ("rot_err_deg", not r1 < rot_lim), ("t_err", not t1 < t_lim),
+                              ("longest_track", longest < GATE_TRACKS["min_longest_track"]))
+             if bad]
+    return vals, fails
+
+
+def landmark_det(inputs, width, height):
+    """(L,) the midpoint det (1 - (b1 . R^T b2)^2) of each landmark's root
+    match, NaN on rows without a root; from the CPU copies of
+    build_multiview_problem's inputs."""
+    from spherical_bundle_adjuster_tpu_torch.core import rotation, sphere
+
+    _, lxy, rxy, valid, rot, _ = (torch.as_tensor(a).cpu() for a in inputs)
+    tt = tracks.merge_tracks(lxy, rxy, valid)
+    b1 = sphere.pixel_to_bearing(lxy.double(), width, height)
+    b2 = sphere.pixel_to_bearing(rxy.double(), width, height)
+    d2 = b2 @ rotation.angle_axis_to_matrix(rot.double())
+    det = (1.0 - torch.sum(b1 * d2, -1) ** 2).numpy()
+    root = (valid & (tt.slot == 0) & (tt.track_id >= 0)).numpy()
+    out = np.full(valid.numel(), np.nan)
+    out[tt.track_id.numpy()[root]] = det[root]
+    return out
+
+
+def problem_gaps(got, want, det):
+    """How far MultiViewProblem `got` is from `want` (both moved to the
+    host): the int and bool fields equal, the bearings' largest gap, the
+    landmarks' largest gap over their norm where det > TRACKS_DET_MIN (and
+    that gap times det), and whether all are within the stated
+    tolerances."""
+    got = [t.cpu() for t in got]
+    want = [t.cpu() for t in want]
+    exact = all(torch.equal(a, b) for a, b in zip(got, want) if not a.is_floating_point())
+    bear = (got[3] - want[3]).abs().max().item()
+    rows = det > TRACKS_DET_MIN
+    rel = ((got[1] - want[1]).norm(dim=-1) / want[1].norm(dim=-1).clamp(min=1e-12)).double().numpy()
+    rel, d = rel[rows], det[rows]
+    lm_ok = bool(np.all(rel <= np.maximum(TRACKS_LANDMARK_RTOL, TRACKS_LANDMARK_DET_RTOL / d)))
+    poses = (got[0] - want[0]).abs().max().item()
+    return dict(exact_fields_equal=exact, bearing_max_gap=bear,
+                landmark_max_rel_gap=float(rel.max(initial=0.0)),
+                landmark_max_rel_gap_times_det=float((rel * d).max(initial=0.0)),
+                poses_max_gap=poses, within=exact and bear <= TRACKS_BEARING_ATOL and lm_ok
+                and poses == 0.0)
+
+
+def track_stats(prob, tt):
+    """Tracks, valid landmarks, the histogram of observations per valid
+    landmark (2 .. P) and the matches linked to their predecessor per
+    pair."""
+    counts = prob.obs_valid.sum(-1).cpu().numpy()
+    lm = prob.lm_valid.cpu().numpy()
+    hist = {int(k): int(np.sum(counts[lm] == k)) for k in range(2, prob.obs_valid.shape[1] + 1)}
+    links = (tt.slot[1:] > 0).sum(-1).cpu().tolist()
+    return dict(num_tracks=int(tt.num_tracks), valid_landmarks=int(lm.sum()),
+                obs_per_landmark_hist=hist, links_per_pair=links)
+
+
+def build_readings(build):
+    """build() after a warm-up: its host syncs, torch calls, wall ms (CUDA
+    events, median of 3), device-busy ms and share (torch.profiler), and
+    whether two builds gave the same bits. Returns (a build, readings)."""
+    first = build()
+    torch.cuda.synchronize()
+    second, syncs = host_syncs(build)
+    torch.cuda.synchronize()
+    with CallCount() as cc:
+        build()
+    ms = event_ms(build)
+    n_dev, busy = device_trace(build)
+    return first, dict(
+        build_ms=ms, host_syncs_per_build=syncs, torch_calls_per_build=cc.calls,
+        device_activities_per_build=n_dev, device_busy_ms_per_build=busy,
+        build_device_busy_share=busy / ms if busy is not None else None,
+        builds_bit_identical=all(torch.equal(a, b) for a, b in zip(first, second)))
+
+
+def build_problem(inputs, width, height):
+    return tracks.build_multiview_problem(*inputs, width, height, max_obs_per_track=TRACKS_P)
+
+
+def tracks_on_card(inputs, width, height):
+    """The build on the card, its readings, and the port's CPU build of
+    the same inputs against it; requires every gate of the build."""
+    prob, rd = build_readings(lambda: build_problem(inputs, width, height))
+    require(rd["builds_bit_identical"], "two builds on the card gave different bits")
+    require(rd["host_syncs_per_build"] == 0,
+            f"the build made {rd['host_syncs_per_build']} host syncs")
+    torch.set_num_threads(os.cpu_count() or 1)
+    cpu = build_problem([a.cpu() for a in inputs], width, height)
+    rd["card_vs_cpu"] = problem_gaps(prob, cpu, landmark_det(inputs, width, height))
+    require(rd["card_vs_cpu"]["within"], f"card build vs CPU build: {rd['card_vs_cpu']}")
+    tt = tracks.merge_tracks(*inputs[1:4])
+    return prob, tt, rd
+
+
+def phase_tracks(dev, name, C, n_lm, slots, stride, kw):
+    """Synthetic tables of C cameras through build_multiview_problem and
+    solve_multiview on the card, gated on test_tracks' BA gates (or on
+    1.5x the reference's errors where it misses them)."""
+    fields, gt = synth_tracks(C, n_lm, TRACKS_SEED, window=slots, stride=stride, slots=slots)
+    inputs = [torch.as_tensor(a, device=dev) for a in fields]
+    prob, tt, rd = tracks_on_card(inputs, TRACKS_W, TRACKS_H)
+    stats = track_stats(prob, tt)
+    (solved, costs), srd = solver_run(lambda p: multiview.solve_multiview(p, **kw), prob,
+                                      kw["num_iters"])
+    ref = TRACKS_REFERENCE_ERRORS.get(name)
+    limits = tuple(TRACKS_REFERENCE_FACTOR * e for e in ref) if ref else None
+    vals, fails = tracks_gates(costs.cpu().numpy(), solved.poses.cpu().numpy(), fields[0], gt,
+                               int(prob.obs_valid.sum(-1).max()), limits)
+    stats["links_per_pair"] = dict(min=min(stats["links_per_pair"]),
+                                   max=max(stats["links_per_pair"]))
+    log(name, cameras=C, pairs=C - 1, match_slots=slots, landmarks_drawn=n_lm, window=slots,
+        stride=stride, L=(C - 1) * slots, P=TRACKS_P, solve_kwargs=kw, **stats, **vals,
+        reference_errors=ref, **rd,
+        **{f"solve_{k}": v for k, v in srd.items()})
+    require(not fails, f"{name}: gates failed: {fails}")
+
+
+def trajectory_poses(n):
+    """(n, 6) [angle-axis | t]: frame k turned ODO_YAW_DEG * k about z,
+    its centre ODO_STEP * k along x (t = R c in p = R X - t)."""
+    yaw = np.deg2rad(ODO_YAW_DEG) * np.arange(n)
+    aa = np.stack([np.zeros(n), np.zeros(n), yaw], -1)
+    c = np.stack([ODO_STEP * np.arange(n), np.zeros(n), np.zeros(n)], -1)
+    return np.concatenate([aa, np.einsum("kij,kj->ki", angle_axis_matrices(aa), c)],
+                          -1).astype(np.float32)
+
+
+def shared_cells(left_xy, right_xy, valid):
+    """Frame k in both slots of a consecutive-pair batch: over every right
+    keypoint of pair k-1 and left keypoint of pair k in one grid cell, how
+    many (pair k, right m', left m) are in one cell and how many of them
+    differ in any bit; also pair k-1's right cells that hold two or more
+    keypoints (the tie rule's cases) and pair k's left cells that do (two
+    matches continuing one track: the duplicate scatter's cases)."""
+    lxy, rxy, v = (t.cpu().numpy() for t in (left_xy, right_xy, valid))
+    same, differ, ties, dups = [], [], [], []
+    for k in range(1, v.shape[0]):
+        r, l = rxy[k - 1][v[k - 1]], lxy[k][v[k]]
+        cr, cl = np.round(r / CELL_SIZE), np.round(l / CELL_SIZE)
+        eq = np.all(cr[:, None] == cl[None], -1)
+        same.append(int(eq.sum()))
+        differ.append(int((eq & np.any(r[:, None] != l[None], -1)).sum()))
+        ties.append(int(len(cr) - len(np.unique(cr, axis=0))))
+        dups.append(int(len(cl) - len(np.unique(cl, axis=0))))
+    return dict(same_cell=same, same_cell_not_bit_identical=differ,
+                right_cells_shared=ties, left_cells_shared=dups)
+
+
+def scatter_collisions(prob_inputs, tt):
+    """Cells of the (L, P) table named by more than one observation in
+    the left scatter and in the right scatter (the reference lets the
+    last write win; the port picks the same writer explicitly)."""
+    valid = prob_inputs[3].cpu().numpy()
+    tid, slot, nxt = (t.cpu().numpy() for t in (tt.track_id, tt.slot, tt.has_next))
+    out = {}
+    for name, s, ok in (("left", slot, valid), ("right", slot + 1, valid & ~nxt)):
+        ok = ok & (tid >= 0) & (s < TRACKS_P)
+        _, n = np.unique(tid[ok] * TRACKS_P + s[ok], return_counts=True)
+        out[name] = int(np.sum(n - 1))
+    return out
+
+
+def phase_tracks_from_odometry(dev):
+    """A consecutive-pair batch on rendered frames (K1, K2, K3 through
+    run_two_view_batch), chained with a loop closure held on the card,
+    through build_multiview_problem into solve_multiview."""
+    h, w = SIZE_512
+    rng = np.random.default_rng(ODO_SEED)
+    params = synthetic.texture_params_from_numpy(rng)
+    dists = synthetic.disc_distances_from_numpy(rng)
+    gt = trajectory_poses(ODO_FRAMES)
+    frames = synthetic.render_trajectory(params, dists, gt, h, w, dev)
+    cfg = CFG_512
+    gumbel = draws(cfg, ODO_FRAMES - 1, dev)
+    run_batch(frames[:-1], frames[1:], cfg, gumbel)  # warm-up
+    (out, batch_ms), counts = counted(lambda: run_batch(frames[:-1], frames[1:], cfg, gumbel))
+    require(all(c > 0 for c in counts.values()), f"a kernel of the path never launched: {counts}")
+    i, j = ODO_CLOSURE
+    clo = twoview.run_two_view(frames[i], frames[j], torch.Generator(dev).manual_seed(SEED), cfg)
+    # run_sequence's information weights: sqrt(matches), 0.1x for a pair
+    # without consensus, normalised to a mean odometry weight of 1
+    nm = torch.sqrt(out.num_matches.double().clamp(min=1.0)) * torch.where(out.ok, 1.0, 0.1)
+    norm = nm.mean().clamp(min=1e-6)
+    cw = torch.sqrt(clo.num_matches.double().clamp(min=1.0)) / norm
+    g = pose_graph.chain_with_loop_closures(
+        out.rotation_aa, out.translation, [(i, j, clo.rotation_aa, clo.translation)],
+        closure_weight=2.0, odometry_weights=(nm / norm).float(), closure_weights=[cw])
+    require(all(t.device.type == "cuda" for t in g), "chain_with_loop_closures left the card")
+    inputs = [g.poses, out.left_xy, out.right_xy, out.match_valid, out.rotation_aa,
+              out.translation]
+    cells = shared_cells(*inputs[1:4])
+    prob, tt, rd = tracks_on_card(inputs, w, h)
+    stats = track_stats(prob, tt)
+    (solved, costs), srd = solver_run(lambda p: multiview.solve_multiview(p, num_iters=15),
+                                      prob, 15)
+    c = costs.cpu().numpy()
+    log("tracks_from_odometry", frames=ODO_FRAMES, size=[h, w], yaw_step_deg=ODO_YAW_DEG,
+        step=ODO_STEP, launches=counts, batch_ms=batch_ms,
+        matches=out.num_matches.tolist(), closure=dict(pair=list(ODO_CLOSURE),
+                                                       matches=int(clo.num_matches),
+                                                       edge_weight=float(g.edge_weight[-1])),
+        **cells, scatter_collisions=scatter_collisions(inputs, tt), **stats, **rd,
+        ba_costs=c.tolist(), **{f"solve_{k}": v for k, v in srd.items()})
+    require(all(n > 0 for n in stats["links_per_pair"]),
+            f"a pair links no match to its predecessor: {stats['links_per_pair']}")
+    require(not any(cells["same_cell_not_bit_identical"]),
+            f"frame keypoints in one cell differ between the two slots: {cells}")
+    require(bool(np.all(np.isfinite(c))) and c[-1] <= c[0], f"BA costs {c.tolist()}")
+    return counts
+
+
+def phase_tracks_all(dev):
+    """The three tracks phases; returns the odometry batch's launches."""
+    for name, C, n_lm, slots, stride, kw in TRACKS_PHASES:
+        phase_tracks(dev, name, C, n_lm, slots, stride, kw)
+    return phase_tracks_from_odometry(dev)
+
+
 def main():
     dev, smi = phase_device()
     phase_build()
@@ -1350,6 +1709,7 @@ def main():
                  "batch_512x1024_corrected": phase_batch_corrected(dev)}
     per_frontend = phase_frontends(dev)
     phase_solvers(dev)
+    per_batch["tracks_from_odometry"] = phase_tracks_all(dev)
     for r, sym in zip(rows, ("sba_det_pyramid", "sba_haar_trace", "sba_top2")):
         r["launches"] = counts[sym]
         r["launches_per_pair"] = counts[sym] / N_PAIRS_2K

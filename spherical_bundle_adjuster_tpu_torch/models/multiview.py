@@ -69,13 +69,19 @@ class ObsIndex(NamedTuple):
 
 def obs_index(prob: MultiViewProblem, linear_solver: str) -> ObsIndex:
     """The segment-sum orders of a solve of `prob` with `linear_solver`
-    (the pair order for "dense" only)."""
+    (the pair order for "dense" only). Observations without weight
+    (`_weights`) are dropped from every sum: their rows are exact zeros,
+    and in a problem from models/tracks most slots are empty and name
+    camera 0, which would make one segment hold them all."""
     C = prob.poses.shape[0]
+    w = _weights(prob) > 0
+    cam = torch.where(w, prob.obs_cam.long(), -1)
     pair = None
     if linear_solver == "dense":
-        ids = (prob.obs_cam[:, :, None].long() * C + prob.obs_cam[:, None, :].long())
+        ids = torch.where(w[:, :, None] & w[:, None, :],
+                          cam[:, :, None] * C + cam[:, None, :], -1)
         pair = segment.segments(ids, C * C)
-    return ObsIndex(segment.segments(prob.obs_cam, C), pair)
+    return ObsIndex(segment.segments(cam, C), pair)
 
 
 def transform_point(pose, X):

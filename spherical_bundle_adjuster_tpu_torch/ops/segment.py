@@ -11,7 +11,9 @@ run of rows with `torch.segment_reduce`, which adds a segment's rows one
 after another in one thread. So `segment_sum` gives the same bits on
 every run on one device, and neither step makes a host sync. As in
 `jax.ops.segment_sum`, rows whose id lies outside [0, num_segments) are
-dropped.
+dropped: they go to DROP_SEGMENTS trailing segments in turn, which are
+summed and thrown away, so that no one thread adds them all (a
+multiview problem built from tracks drops most of its rows).
 """
 
 from __future__ import annotations
@@ -21,16 +23,23 @@ from typing import NamedTuple
 import torch
 
 
+# trailing segments that take the dropped rows, row i the (i mod
+# DROP_SEGMENTS)-th
+DROP_SEGMENTS = 1024
+
+
 class Segments(NamedTuple):
     order: torch.Tensor    # (n,) int64 rows by segment id, stable; dropped rows last
-    lengths: torch.Tensor  # (num_segments + 1,) int64 rows per segment; the last: dropped
+    lengths: torch.Tensor  # (num_segments + DROP_SEGMENTS,) int64 rows per segment; the
+    #                        last DROP_SEGMENTS hold the dropped rows
 
 
 def segments(ids, num_segments: int) -> Segments:
     """The summation order of (n,) segment ids, on the ids' device."""
     ids = ids.reshape(-1).long()
-    ids = torch.where((ids >= 0) & (ids < num_segments), ids, num_segments)
-    lengths = torch.zeros(num_segments + 1, dtype=torch.long, device=ids.device)
+    drop = num_segments + torch.arange(ids.numel(), device=ids.device) % DROP_SEGMENTS
+    ids = torch.where((ids >= 0) & (ids < num_segments), ids, drop)
+    lengths = torch.zeros(num_segments + DROP_SEGMENTS, dtype=torch.long, device=ids.device)
     lengths.index_add_(0, ids, torch.ones_like(ids))
     return Segments(torch.argsort(ids, stable=True), lengths)
 
@@ -40,4 +49,4 @@ def segment_sum(data, seg: Segments):
     the rows its segment id names (zero for an empty segment)."""
     sums = torch.segment_reduce(data[seg.order], "sum", lengths=seg.lengths, axis=0,
                                 unsafe=True)
-    return sums[:-1]
+    return sums[:-DROP_SEGMENTS]

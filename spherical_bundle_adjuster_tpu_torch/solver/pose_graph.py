@@ -285,7 +285,10 @@ def chain_with_loop_closures(
 
     odometry_weights: optional (N-1,) per-edge information weights
     (default 1.0 each); closure_weights: optional per-closure weights,
-    multiplied by closure_weight (default 1.0 each)."""
+    multiplied by closure_weight (default 1.0 each). Weights and each
+    closure's rot_aa and tran may be numpy, numbers or tensors on any
+    device (a batch's `num_matches`, `run_two_view`'s outputs on the
+    card): they move to the graph's device without a host read."""
     if not isinstance(odometry_rot, torch.Tensor):
         odometry_rot = torch.as_tensor(np.asarray(odometry_rot, np.float32), device="cuda")
     odometry_tran = torch.as_tensor(odometry_tran, dtype=odometry_rot.dtype,
@@ -306,20 +309,20 @@ def chain_with_loop_closures(
                        torch.cat([aa, torch.stack(ts)], -1)])
 
     if odometry_weights is not None:
-        ow = np.asarray(odometry_weights, dtype=np.float32)
+        ow = torch.as_tensor(odometry_weights, dtype=torch.float32, device=dev)
         if ow.shape != (n - 1,):
-            raise ValueError(f"odometry_weights of shape {ow.shape}, expected {(n - 1,)}")
-        ew = [float(x) for x in ow]
+            raise ValueError(f"odometry_weights of shape {tuple(ow.shape)}, expected {(n - 1,)}")
     else:
-        ew = [1.0] * (n - 1)
-    ci, cj, cr, ct = [], [], [], []
+        ow = torch.ones(n - 1, dtype=torch.float32, device=dev)
+    ci, cj, cr, ct, cw = [], [], [], [], []
     for idx, (i, j, raa, tr) in enumerate(closures):
         ci.append(i)
         cj.append(j)
-        cr.append(torch.as_tensor(np.array(raa), dtype=dt, device=dev))
-        ct.append(torch.as_tensor(np.array(tr), dtype=dt, device=dev))
-        cw = 1.0 if closure_weights is None else float(closure_weights[idx])
-        ew.append(closure_weight * cw)
+        cr.append(torch.as_tensor(raa, dtype=dt, device=dev))
+        ct.append(torch.as_tensor(tr, dtype=dt, device=dev))
+        # the reference multiplies in float64 and rounds once to float32
+        w = 1.0 if closure_weights is None else closure_weights[idx]
+        cw.append(closure_weight * torch.as_tensor(w, dtype=torch.float64, device=dev))
     ar = list(range(n - 1))
     return PoseGraph(
         poses=poses,
@@ -327,5 +330,5 @@ def chain_with_loop_closures(
         edge_j=torch.tensor([k + 1 for k in ar] + cj, dtype=torch.int32, device=dev),
         edge_rot=torch.cat([odometry_rot, *(r[None] for r in cr)]),
         edge_tran=torch.cat([odometry_tran, *(x[None] for x in ct)]),
-        edge_weight=torch.tensor(ew, dtype=torch.float32, device=dev),
+        edge_weight=torch.cat([ow, *(w.reshape(1).float() for w in cw)]),
     )

@@ -1,5 +1,6 @@
 """Synthetic ERP scenes, from spherical_bundle_adjuster_tpu/utils/
-synthetic.py: pure-rotation pairs and pairs with parallax.
+synthetic.py: pure-rotation pairs, pairs with parallax and frames along a
+trajectory.
 
 The scene is a procedural function of the viewing direction (random
 Fourier shading plus high-contrast spherical discs), so a rotated view is
@@ -102,6 +103,14 @@ def render_erp_at(params, dists, pose_aa_t, height: int = 128, width: int = 256,
         img = 0.5 + 1.5 * base + 0.5 * discs
         out[r0:r1] = (torch.clamp(img, 0.0, 1.0) * 255.0).to(torch.uint8)
     return out
+
+
+def render_trajectory(params, dists, poses_aa_t, height=128, width=256, device="cuda"):
+    """Stack of ERP frames (N, H, W, 3) uint8 along a camera trajectory
+    (N, 6) [angle-axis | t], each render_erp_at's: the multi-keyframe
+    fixture with exact ground-truth poses and parallax."""
+    return torch.stack([render_erp_at(params, dists, pose, height, width, device)
+                        for pose in poses_aa_t])
 
 
 def translation_pair(params, dists, euler, t, height=128, width=256, device="cuda"):

@@ -416,3 +416,61 @@ def test_solver_inputs_on_the_card_never_move_to_the_cpu(dev, kind, args, kw):
         out, costs = solve(inputs)
     assert mode.calls == []
     assert all(t.device.type == "cuda" for t in (*out, costs))
+
+
+def test_chain_with_loop_closures_takes_closures_on_the_card(dev):
+    """Odometry, closures and both weights as CUDA tensors (as a batch's
+    and run_two_view's outputs arrive): no torch call returns a CPU
+    tensor, every field stays on the card, and the graph equals the
+    port's CPU build of the same values (the chained poses within 1e-5,
+    the card's 3x3 products may round otherwise; every other field bit
+    for bit)."""
+    import chip_smoke
+    from spherical_bundle_adjuster_tpu_torch.solver import pose_graph
+
+    n = 24
+    _, ei, ej, rot, tran, _ = chip_smoke.synth_pose_graph(n, 4, 4)[0]
+
+    def build(device):
+        t = [torch.as_tensor(x, device=device) for x in (rot, tran)]
+        closures = [(int(i), int(j), t[0][k], t[1][k])
+                    for k, (i, j) in enumerate(zip(ei, ej)) if k >= n - 1]
+        counts = torch.arange(100, 100 + n - 1, device=device)  # match counts
+        cw = torch.linspace(0.5, 1.5, len(closures), device=device)
+        return pose_graph.chain_with_loop_closures(
+            t[0][:n - 1], t[1][:n - 1], closures, closure_weight=2.0,
+            odometry_weights=torch.sqrt(counts.double()), closure_weights=cw)
+
+    build(dev)  # imports outside the watch
+    mode = _CpuTensors()
+    with mode:
+        card = build(dev)
+    assert mode.calls == []
+    assert all(t.device.type == "cuda" for t in card)
+    cpu = build("cpu")
+    np.testing.assert_allclose(card.poses.cpu().numpy(), cpu.poses.numpy(), atol=1e-5)
+    for f in pose_graph.PoseGraph._fields[1:]:
+        assert torch.equal(getattr(card, f).cpu(), getattr(cpu, f)), f
+
+
+def test_tracks_build_on_the_card_matches_the_cpu(dev):
+    """models/tracks.build_multiview_problem on the card: no torch call
+    returns a CPU tensor, two builds give the same bits, and the build
+    equals the port's CPU build of the same inputs within
+    chip_smoke.problem_gaps' tolerances (ints and bools exact)."""
+    import chip_smoke
+    from spherical_bundle_adjuster_tpu_torch.models import tracks
+
+    fields, _ = chip_smoke.synth_tracks(10, 80, 1)
+    inputs = [torch.as_tensor(a, device=dev) for a in fields]
+    w, h = chip_smoke.TRACKS_W, chip_smoke.TRACKS_H
+    tracks.build_multiview_problem(*inputs, w, h)  # imports outside the watch
+    mode = _CpuTensors()
+    with mode:
+        card = tracks.build_multiview_problem(*inputs, w, h)
+    assert mode.calls == []
+    again = tracks.build_multiview_problem(*inputs, w, h)
+    assert all(torch.equal(a, b) for a, b in zip(card, again))
+    cpu = tracks.build_multiview_problem(*(a.cpu() for a in inputs), w, h)
+    gaps = chip_smoke.problem_gaps(card, cpu, chip_smoke.landmark_det(fields, w, h))
+    assert gaps["within"], gaps

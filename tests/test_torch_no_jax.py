@@ -25,7 +25,7 @@ REFERENCE = "spherical_bundle_adjuster_tpu"
 
 
 # the port's scripts at the repo root
-SCRIPTS = ("chip_smoke.py", "card_rounding.py")
+SCRIPTS = ("chip_smoke.py", "card_rounding.py", "solve_times.py")
 
 
 def _script_imports():
@@ -79,7 +79,7 @@ def test_no_file_of_the_port_mentions_a_jax_import():
                 assert top not in ("jax", REFERENCE), (f, node.lineno, n)
 
 
-@pytest.mark.parametrize("fn", ["render_erp", "rotation_pair"])
+@pytest.mark.parametrize("fn", ["render_erp", "rotation_pair", "render_trajectory"])
 def test_synthetic_entry_points_default_to_the_card(fn):
     from spherical_bundle_adjuster_tpu_torch.utils import synthetic
 

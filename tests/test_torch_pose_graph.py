@@ -139,3 +139,29 @@ def test_chain_with_loop_closures_parity():
     with pytest.raises(ValueError):
         tpg.chain_with_loop_closures(torch.from_numpy(np.array(odo_r)),
                                      torch.from_numpy(np.array(odo_t)), odometry_weights=ow[:3])
+
+
+def test_chain_with_loop_closures_takes_tensors():
+    """Closures, odometry_weights and closure_weights given as tensors (a
+    batch's match counts, run_two_view's outputs) build the graph that
+    the same values as numpy build, field for field, bit for bit."""
+    odo_r, odo_t, closure, _ = jtests.make_loop(n=9, drift=0.03, seed=2)
+    c_raa, c_t = (np.asarray(x, np.float32) for x in closure)
+    closures = [(0, 8, c_raa, c_t), (2, 6, c_raa * 0.5, c_t)]
+    ow = np.arange(100, 108)  # match counts
+    cw = np.array([1.0, 0.3], np.float32)
+    odo = [torch.from_numpy(np.array(x)) for x in (odo_r, odo_t)]
+    want = tpg.chain_with_loop_closures(*odo, closures, closure_weight=4.0,
+                                        odometry_weights=ow, closure_weights=cw)
+    got = tpg.chain_with_loop_closures(
+        *odo, [(i, j, torch.from_numpy(r), torch.from_numpy(t)) for i, j, r, t in closures],
+        closure_weight=4.0, odometry_weights=torch.from_numpy(ow),
+        closure_weights=torch.from_numpy(cw))
+    for f in tpg.PoseGraph._fields:
+        a, b = getattr(got, f), getattr(want, f)
+        assert a.dtype == b.dtype and torch.equal(a, b), f
+    assert got.edge_weight.dtype == torch.float32
+    np.testing.assert_array_equal(got.edge_weight.numpy(),
+                                  np.asarray(jpg.chain_with_loop_closures(
+                                      odo_r, odo_t, closures, closure_weight=4.0,
+                                      odometry_weights=ow, closure_weights=cw).edge_weight))
