@@ -165,13 +165,16 @@ PITCH_SEED = 77
 # at another batch size, and compat's BCD carries the start.
 BATCH_GAP_LIMIT_DEG = 1.2 * 0.4865
 N_AUTO_SHORT = 2  # the auto batch's pairs that fall short on the parity ladder
+ODO_FRAMES = 8  # tracks_from_odometry's rendered frames: 7 consecutive pairs
 # Bands of 128 x 1024 per K1 / K2 launch in the 512x1024 phases: one pair
 # on the parity and on the dense ladder, the auto batch's dense re-run of
-# its short pairs, and a pass of each swept batch_chunk.
+# its short pairs, a pass of each swept batch_chunk, and the odometry
+# batch's consecutive pairs in one pass.
 _PARITY_BANDS = 2 * len(CFG_512.frontend.band_pitches_deg)
+_ODO_BANDS = _PARITY_BANDS * min(ODO_FRAMES - 1, twoview.BATCH_CHUNK or ODO_FRAMES - 1)
 BAND_LAUNCHES = sorted({_PARITY_BANDS, 2 * len(DENSE_BAND_PITCHES),
                         2 * len(DENSE_BAND_PITCHES) * N_AUTO_SHORT,
-                        *(_PARITY_BANDS * (c or N_BATCH) for c in CHUNKS)})
+                        *(_PARITY_BANDS * (c or N_BATCH) for c in CHUNKS), _ODO_BANDS})
 
 
 def corrected_mode(cfg):
@@ -361,7 +364,8 @@ def phase_kernels(dev):
     # by the launch's size (_max_outputs), so each band count of 128 x
     # 1024 bands that the 512x1024 phases launch is checked (BAND_LAUNCHES:
     # one pair's parity and dense ladders, the auto batch's dense re-run,
-    # a pass of each swept batch_chunk; the first bands of the 64-pair
+    # a pass of each swept batch_chunk, the odometry batch's 7 pairs; the
+    # first bands of the 64-pair
     # batch's crops), then the ERP images and cube strips of one 2K pair
     h5, w5 = SIZE_512
     batch_pairs = [make_pair(i, h5, w5, dev) for i in range(N_DISTINCT)]
@@ -1396,7 +1400,6 @@ TRACKS_LANDMARK_RTOL = 1e-4
 TRACKS_LANDMARK_DET_RTOL = 1e-6
 TRACKS_DET_MIN = 1e-3
 # tracks_from_odometry: frames along a translating, turning trajectory
-ODO_FRAMES = 8
 ODO_YAW_DEG = 3.0
 ODO_STEP = 0.25
 ODO_SEED = 11
@@ -1654,6 +1657,10 @@ def phase_tracks_from_odometry(dev):
     run_batch(frames[:-1], frames[1:], cfg, gumbel)  # warm-up
     (out, batch_ms), counts = counted(lambda: run_batch(frames[:-1], frames[1:], cfg, gumbel))
     require(all(c > 0 for c in counts.values()), f"a kernel of the path never launched: {counts}")
+    passes = -(-(ODO_FRAMES - 1) // (twoview.BATCH_CHUNK or ODO_FRAMES - 1))
+    require(all(c == passes for c in counts.values()) and _ODO_BANDS in BAND_LAUNCHES,
+            f"launches {counts}, expected {passes} each of {_ODO_BANDS} bands, a shape the "
+            "kernels phase checked")
     i, j = ODO_CLOSURE
     clo = twoview.run_two_view(frames[i], frames[j], torch.Generator(dev).manual_seed(SEED), cfg)
     # run_sequence's information weights: sqrt(matches), 0.1x for a pair

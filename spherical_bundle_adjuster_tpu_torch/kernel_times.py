@@ -1,9 +1,12 @@
 """Time the port's kernels K1, K2 and K3 on the card at the 2K slice's
-shapes, for this tree or another checkout of the port.
+shapes, or its global solves, for this tree or another checkout of the port.
 
     python spherical_bundle_adjuster_tpu_torch/kernel_times.py [--tree DIR] [--label NAME]
     python spherical_bundle_adjuster_tpu_torch/kernel_times.py --stage-bytes 73728,114688
     python spherical_bundle_adjuster_tpu_torch/kernel_times.py --ablate
+    python spherical_bundle_adjuster_tpu_torch/kernel_times.py --save-solves P.pt
+    python spherical_bundle_adjuster_tpu_torch/kernel_times.py --solves P.pt [--tree DIR] [--label NAME]
+        [--against DIR2]
 
 `--tree` imports spherical_bundle_adjuster_tpu_torch from DIR instead of
 this checkout (for example an older commit unpacked with `git archive`),
@@ -24,6 +27,17 @@ splits their time between staging and compute. For K3 it also times
 one query tile alone (`top2_one_tile`: 128 queries, one block per SM)
 and K3 built without the merge of the blocks' top-2 (SBA_NO_MERGE).
 Those lines carry the budget and the variant.
+
+`--save-solves` builds chip_smoke.py's solver and tracks problems with
+this tree (on the CPU; the tracks problems need this tree's
+models/tracks) and saves them. `--solves` loads them and times each
+with DIR's solve_multiview or optimize_pose_graph instead of the
+kernels; `--against DIR2` times DIR2's too, in the same process, the
+two versions' solves in turns, so that both see the same host load.
+One line per problem and version: the median of 3 solves (8 with
+`--against`) after a warm-up (CUDA events around the call, the host in
+the loop), the median of their process CPU times (`host_cpu_ms`), the
+final cost and a digest of the solved poses, landmarks and costs.
 """
 
 from __future__ import annotations
@@ -81,6 +95,93 @@ def digest(out):
     return h.hexdigest()[:16]
 
 
+def save_solves(path, root):
+    """chip_smoke.py's solver and tracks problems, built with the tree at
+    root on the CPU: {name: (kind, fields, solve keywords)}."""
+    import sys
+
+    sys.path.insert(0, str(root))
+    import chip_smoke as smoke
+    from spherical_bundle_adjuster_tpu_torch.models import multiview, tracks
+    from spherical_bundle_adjuster_tpu_torch.solver import pose_graph
+
+    out = {}
+    for name, C, L, P, noise, seed, kw in smoke.MULTIVIEW_PHASES:
+        fields, _ = smoke.synth_multiview(C, L, P, noise, seed)
+        out[name] = ("multiview", list(multiview.problem_from_numpy(fields, "cpu")), kw)
+    for name, n, k, seed, kw in smoke.POSE_GRAPH_PHASES:
+        fields, _ = smoke.synth_pose_graph(n, k, seed)
+        out[name] = ("pose_graph", list(pose_graph.graph_from_numpy(fields, "cpu")), kw)
+    for name, C, n_lm, slots, stride, kw in smoke.TRACKS_PHASES:
+        fields, _ = smoke.synth_tracks(C, n_lm, smoke.TRACKS_SEED, window=slots, stride=stride,
+                                       slots=slots)
+        prob = tracks.build_multiview_problem(*(torch.as_tensor(a) for a in fields),
+                                              smoke.TRACKS_W, smoke.TRACKS_H,
+                                              max_obs_per_track=smoke.TRACKS_P)
+        out[name] = ("multiview", list(prob), kw)
+    torch.save(out, path)
+
+
+def load_port(tree, alias):
+    """The port of the checkout at tree, imported as package `alias`, so
+    that two versions run in one process (the port imports itself only
+    by relative imports)."""
+    import importlib.util
+    import sys
+
+    pkg = tree / "spherical_bundle_adjuster_tpu_torch"
+    spec = importlib.util.spec_from_file_location(alias, pkg / "__init__.py",
+                                                  submodule_search_locations=[str(pkg)])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[alias] = mod
+    spec.loader.exec_module(mod)
+    return alias
+
+
+def time_solves(path, ports, card):
+    """Times each saved problem's solve with each port, (label, package
+    name) pairs: a warm-up each, then 3 solves, or with two ports 8 in
+    turns (AB BA AB BA ...), so both see the same host load."""
+    import importlib
+    import json
+    import statistics
+
+    dev = torch.device("cuda", 0)
+    mods = [(label, importlib.import_module(f"{pkg}.models.multiview"),
+             importlib.import_module(f"{pkg}.solver.pose_graph")) for label, pkg in ports]
+    reps = 3 if len(mods) == 1 else 8
+    for name, (kind, fields, kw) in torch.load(path).items():
+        fields = [f.to(dev) for f in fields]
+        runs = []
+        for label, multiview, pose_graph in mods:
+            if kind == "multiview":
+                inputs, solve = multiview.MultiViewProblem(*fields), multiview.solve_multiview
+            else:
+                inputs, solve = pose_graph.PoseGraph(*fields), pose_graph.optimize_pose_graph
+            solve(inputs, **kw)  # warm-up
+            runs.append((label, inputs, solve, [], []))
+        for r in range(reps):
+            for label, inputs, solve, times, cpu in (runs if r % 2 == 0 else runs[::-1]):
+                start, end = (torch.cuda.Event(enable_timing=True),
+                              torch.cuda.Event(enable_timing=True))
+                torch.cuda.synchronize()
+                c0 = time.process_time()
+                start.record()
+                solved, costs = solve(inputs, **kw)
+                end.record()
+                torch.cuda.synchronize()
+                cpu.append((time.process_time() - c0) * 1e3)
+                times.append(start.elapsed_time(end))
+                parts = (solved.poses, solved.landmarks, costs) if kind == "multiview" else (
+                    solved.poses, costs)
+                if len(times) == reps:
+                    print(json.dumps({
+                        "tree": label, "solve": name, "solve_ms": statistics.median(times),
+                        "solve_ms_each": times, "host_cpu_ms": statistics.median(cpu),
+                        "final_cost": float(costs[-1]), "out_sha": digest(parts),
+                        "card": card}), flush=True)
+
+
 def main():
     import argparse
     import json
@@ -88,15 +189,22 @@ def main():
     import sys
     from pathlib import Path
 
+    root = Path(__file__).resolve().parent.parent
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--tree", default=str(Path(__file__).resolve().parent.parent))
+    ap.add_argument("--tree", default=str(root))
     ap.add_argument("--label", default="this tree")
     ap.add_argument("--stage-bytes", default="", help="comma-separated staging budgets")
     ap.add_argument("--ablate", action="store_true")
+    ap.add_argument("--save-solves", default="", help="file to save the solver problems to")
+    ap.add_argument("--solves", default="", help="time the solves saved in this file")
+    ap.add_argument("--against", default="", help="with --solves: a second checkout, in turns")
     args = ap.parse_args()
+    if args.save_solves:
+        return save_solves(args.save_solves, root)
     if not torch.cuda.is_available():
         sys.exit("kernel_times: no CUDA device")
-    sys.path.insert(0, str(Path(args.tree).resolve()))
+    tree = Path(args.tree).resolve()
+    sys.path.insert(0, str(tree))
     from spherical_bundle_adjuster_tpu_torch.ops import cuda_match, cuda_surf, integral
     from spherical_bundle_adjuster_tpu_torch.utils.config import SurfConfig
 
@@ -104,6 +212,12 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
+    if args.solves:
+        ports = [(args.label, load_port(tree, "port_tree"))]
+        if args.against:
+            ports.append((Path(args.against).resolve().name, load_port(Path(args.against).resolve(),
+                                                             "port_against")))
+        return time_solves(args.solves, ports, card)
     dev = torch.device("cuda", 0)
     g = torch.Generator(dev).manual_seed(0)
     # the 8 bands of one 1024x2048 pair (4 pitches x 2 views), 256 x 2048

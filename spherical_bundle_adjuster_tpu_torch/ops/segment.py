@@ -11,9 +11,10 @@ run of rows with `torch.segment_reduce`, which adds a segment's rows one
 after another in one thread. So `segment_sum` gives the same bits on
 every run on one device, and neither step makes a host sync. As in
 `jax.ops.segment_sum`, rows whose id lies outside [0, num_segments) are
-dropped: they go to DROP_SEGMENTS trailing segments in turn, which are
-summed and thrown away, so that no one thread adds them all (a
-multiview problem built from tracks drops most of its rows).
+dropped: they go in turn to trailing segments, one for every DROP_ROWS
+rows of ids, which are summed and thrown away, so that no one thread
+adds them all (a multiview problem built from tracks drops most of its
+rows) and a sum that drops nothing gets few extra segments.
 """
 
 from __future__ import annotations
@@ -23,23 +24,28 @@ from typing import NamedTuple
 import torch
 
 
-# trailing segments that take the dropped rows, row i the (i mod
-# DROP_SEGMENTS)-th
-DROP_SEGMENTS = 1024
+# rows of ids per trailing segment that takes dropped rows: n ids get
+# _num_drop(n) of them, row i goes to the (i mod _num_drop(n))-th
+DROP_ROWS = 512
+
+
+def _num_drop(n: int) -> int:
+    return max(1, -(-n // DROP_ROWS))
 
 
 class Segments(NamedTuple):
     order: torch.Tensor    # (n,) int64 rows by segment id, stable; dropped rows last
-    lengths: torch.Tensor  # (num_segments + DROP_SEGMENTS,) int64 rows per segment; the
-    #                        last DROP_SEGMENTS hold the dropped rows
+    lengths: torch.Tensor  # (num_segments + _num_drop(n),) int64 rows per segment; the
+    #                        last _num_drop(n) hold the dropped rows
 
 
 def segments(ids, num_segments: int) -> Segments:
     """The summation order of (n,) segment ids, on the ids' device."""
     ids = ids.reshape(-1).long()
-    drop = num_segments + torch.arange(ids.numel(), device=ids.device) % DROP_SEGMENTS
+    n_drop = _num_drop(ids.numel())
+    drop = num_segments + torch.arange(ids.numel(), device=ids.device) % n_drop
     ids = torch.where((ids >= 0) & (ids < num_segments), ids, drop)
-    lengths = torch.zeros(num_segments + DROP_SEGMENTS, dtype=torch.long, device=ids.device)
+    lengths = torch.zeros(num_segments + n_drop, dtype=torch.long, device=ids.device)
     lengths.index_add_(0, ids, torch.ones_like(ids))
     return Segments(torch.argsort(ids, stable=True), lengths)
 
@@ -49,4 +55,4 @@ def segment_sum(data, seg: Segments):
     the rows its segment id names (zero for an empty segment)."""
     sums = torch.segment_reduce(data[seg.order], "sum", lengths=seg.lengths, axis=0,
                                 unsafe=True)
-    return sums[:-DROP_SEGMENTS]
+    return sums[:-_num_drop(seg.order.numel())]

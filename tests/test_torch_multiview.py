@@ -176,6 +176,21 @@ def test_segment_sum_drops_ids_outside_the_segments():
     assert torch.equal(empty[[0, 1, 2, 4]], torch.zeros(4, 5))
 
 
+def test_segment_sum_spreads_dropped_rows():
+    """Most of 3000 rows dropped (a tracks problem's empty slots): they
+    fill one trailing segment per DROP_ROWS rows, and the kept sums equal
+    jax.ops.segment_sum's (atol 1e-5)."""
+    rng = np.random.default_rng(4)
+    ids = np.where(rng.random(3000) < 0.85, -1, rng.integers(0, 7, 3000)).astype(np.int32)
+    data = rng.normal(size=(3000, 5)).astype(np.float32)
+    seg = segment.segments(torch.from_numpy(ids), 7)
+    assert seg.lengths.shape == (7 + -(-3000 // segment.DROP_ROWS),)
+    assert int(seg.lengths[7:].max()) <= segment.DROP_ROWS
+    got = segment.segment_sum(torch.from_numpy(data), seg)
+    want = jax.ops.segment_sum(jnp.asarray(data), jnp.asarray(ids), num_segments=7)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+
+
 # (C, L, linear_solver, seed, cg_iters, cg_tol): auto -> dense at C = 4,
 # PCG on test_pcg_matches_dense's problem, auto -> pcg at C = 40
 SOLVES = [(4, 64, "auto", 0, 100, 1e-5), (8, 128, "pcg", 2, 200, 1e-7),

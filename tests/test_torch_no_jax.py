@@ -25,7 +25,7 @@ REFERENCE = "spherical_bundle_adjuster_tpu"
 
 
 # the port's scripts at the repo root
-SCRIPTS = ("chip_smoke.py", "card_rounding.py", "solve_times.py")
+SCRIPTS = ("chip_smoke.py", "card_rounding.py")
 
 
 def _script_imports():

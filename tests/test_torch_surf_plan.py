@@ -264,10 +264,11 @@ def test_integral_image_rows_are_aligned(w):
 # The front ends' and the batch's launch shapes: (bands, rows, width,
 # octaves). At 512x1024, bands of 128 x 1024 (3 octaves): one pair on the
 # parity ladder (8) and on the dense ladder (16), the dense re-run of 2
-# pairs (32), and a pass of 8, 16, 32 and all 64 pairs of a batch (64,
-# 128, 256, 512); the ERP front end at 2K: 2 images of 1024 x 2048; the
+# pairs (32), a pass of 8, 16, 32 and all 64 pairs of a batch (64,
+# 128, 256, 512), and the 7 consecutive pairs of an 8-frame odometry
+# batch (56); the ERP front end at 2K: 2 images of 1024 x 2048; the
 # cubemap front end at 2K: 2 strips of 600 x 3600 (4 octaves).
-LAUNCHES = ([(b, 128, 1024, 3) for b in (8, 16, 32, 64, 128, 256, 512)]
+LAUNCHES = ([(b, 128, 1024, 3) for b in (8, 16, 32, 56, 64, 128, 256, 512)]
             + [(2, 1024, 2048, 4), (2, 600, 3600, 4)])
 
 
