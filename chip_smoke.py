@@ -17,7 +17,11 @@ Phases, each printing its own line:
      its plain version and, for K3, one library call (cdist + topk), and
      each kernel's bound (bytes or fp32 operations over the H100's
      peaks); K1 and K2 also at every band count that the 512x1024 phases
-     launch (BAND_LAUNCHES), the 2K ERP images and the 2K cube strips;
+     launch (BAND_LAUNCHES), the 2K ERP images and the 2K cube strips, and
+     K1 / K2 and K3 at every shape that phase 13 can launch
+     (sequence_launch_shapes: passes of 1 to 16 pairs on each run's
+     ladders, bands of 64 x 512 and 128 x 1024, banks of 256, 512 and 1024
+     descriptors a side);
   3. slice: run_two_view(..., frontend="band") on 4 synthetic 1024x2048
      rotation pairs under the 2K bench config (compat BA), with the
      kernels' launch counts and the bench's 2K compat gates;
@@ -78,7 +82,24 @@ Phases, each printing its own line:
      slots and a falling finite cost. Each build: ms, host syncs (none
      allowed), torch calls, device-busy share, two builds bit-identical
      and the card's build against the port's CPU build of the same
-     inputs.
+     inputs;
+ 13. sequence (models/sequence.run_sequence, mesh=None):
+     sequence_100kf_orbit, scripts/run_sequence_100.run_orbit rewritten
+     for the port: 100 frames at 256x512 of one numpy-seeded scene through
+     a 356.4 deg yaw sweep with a 2 deg pitch and roll wobble, corrected
+     BA, the default auto ladder, 18 skip and loop closures, gated on the
+     slow test's rotation ATE (median < 1 deg, max < 2 deg);
+     sequence_10kf, 10 frames along trajectory_poses(10) at 512x1024 in
+     the bench's corrected mode with closures (0, 2) and (4, 6) through
+     the global BA, gated on the BA having run, the "auto" decision being
+     the JAX package's, falling finite cost traces, 1.5x the JAX
+     package's BA errors on the same frames, and the same ATE bounds
+     where the JAX package meets them, else 1.5x its ATE (it misses the
+     median bound here, on the final and the pose-graph poses). Each: a
+     warm-up on the first 8 frames, then the timed run (CUDA events, peak
+     memory, launch counts), then a run with per-stage CUDA events and
+     host syncs; every K1 / K2 / K3 launch's shape must be one phase 2
+     checked.
 
 Each pipeline phase sets the kernels' launch counts to 0 before its
 measured runs and fails if a kernel of the path was not launched.
@@ -105,7 +126,7 @@ from torch.overrides import TorchFunctionMode
 
 from spherical_bundle_adjuster_tpu_torch import kernel_times
 from spherical_bundle_adjuster_tpu_torch.models import (
-    evaluation, frontend, multiview, tracks, twoview,
+    evaluation, frontend, multiview, sequence, tracks, twoview,
 )
 from spherical_bundle_adjuster_tpu_torch.ops import (
     cuda_match, cuda_surf, integral, kernels, segment, warp,
@@ -379,7 +400,9 @@ def phase_kernels(dev):
         ("2K cube strips", torch.stack([warp.equi_to_cubemap(integral.rgb_to_gray(im), CUBE_2K)
                                         for im in (left, right)]), scfg)]
     shapes = []
-    for name, images, surf_cfg in launches:
+    checked = dict(surf=set(), top2=set())  # what this phase held against plain
+
+    def k1_k2_case(name, images, surf_cfg):
         iib = integral.integral_image(images)
         for o, (k, p) in enumerate(zip(cuda_surf.det_pyramid_cuda(iib, surf_cfg),
                                        cuda_surf.det_pyramid_plain(iib, surf_cfg))):
@@ -387,10 +410,31 @@ def phase_kernels(dev):
         for k, p in zip(cuda_surf.haar_trace_maps_cuda(iib, surf_cfg),
                         cuda_surf.haar_trace_maps_plain(iib, surf_cfg)):
             require(torch.equal(k, p), f"K2 at the {name}: not its plain version")
+        checked["surf"].add(surf_key(iib, surf_cfg))
+
+    for name, images, surf_cfg in launches:
+        k1_k2_case(name, images, surf_cfg)
         shapes.append(dict(name=name, bands=list(images.shape)))
-        del iib, k, p
     del bands5, launches
     log("kernel_shapes", bit_identical_k1_k2=shapes)
+
+    # K1 / K2 at every plan key that phase 13's run_sequence calls can
+    # launch (sequence_launch_shapes: passes of 1-16 pairs on the parity
+    # and the dense ladder), on dense-ladder bands cropped from pairs at
+    # each run's size; K3 at its banks further down
+    seq_banks = set()
+    for run, cfg, (hh, ww) in SEQ_RUNS:
+        keys, banks = sequence_launch_shapes(cfg, hh, ww)
+        seq_banks |= banks
+        n_pairs = -(-max(k[0] for k in keys) // (2 * len(DENSE_BAND_PITCHES)))
+        pairs = [make_pair(i, hh, ww, dev) for i in range(n_pairs)]
+        dense_bands = frontend.crop_bands(*stacked(pairs), cfg, DENSE_BAND_PITCHES).flatten(0, 1)
+        del pairs
+        for key in sorted(keys - checked["surf"]):
+            k1_k2_case(f"{run}'s {key[0]} bands of {hh // 4} x {ww}", dense_bands[:key[0]],
+                       cfg.surf)
+        del dense_bands
+    log("kernel_shapes_sequence", bit_identical_k1_k2=sorted(checked["surf"]))
 
     # K3: 2048 x 2048 x 64 banks, ~10% invalid train slots
     g = torch.Generator(dev).manual_seed(SEED)
@@ -448,6 +492,25 @@ def phase_kernels(dev):
         require(torch.equal(one_d, bdist[p]) and torch.equal(one_i, bidx[p]),
                 f"batched K3: pair {p} differs from its own launch")
 
+    # the banks above, and each pair of the batch launched alone
+    checked["top2"] |= {(1, 2048, 2048), (1, 1000, 2100), (N_BATCH, 1024, 1024), (1, 1024, 1024)}
+
+    # K3 at every bank that phase 13 can launch: P = 1..16 pairs of k x k
+    # banks, each P the first P pairs of one 16-pair draw
+    for k in sorted({b[1] for b in seq_banks}):
+        sq = torch.nn.functional.normalize(torch.randn(16, k, 64, device=dev, generator=g), dim=-1)
+        st = torch.nn.functional.normalize(torch.randn(16, k, 64, device=dev, generator=g), dim=-1)
+        sv = torch.rand(16, k, device=dev, generator=g) > 0.1
+        pd, pi = cuda_match.top2_distances_plain(sq, st, sv)
+        for p in sorted(b[0] for b in seq_banks if b[1] == k):
+            d, i = cuda_match.top2_distances_cuda(sq[:p], st[:p], sv[:p])
+            torch.cuda.synchronize()
+            require(torch.equal(i, pi[:p]), f"K3 at ({p}, {k}, {k}): indices differ")
+            require(max_abs_err(d, pd[:p]) <= 2e-3, f"K3 at ({p}, {k}, {k}): distances differ")
+            checked["top2"].add((p, k, k))
+        del sq, st, sv, pd, pi
+    log("kernel_banks_sequence", k3_within_tolerance=sorted(checked["top2"]))
+
     def library_batched():
         return torch.topk(torch.cdist(bq, bt).masked_fill_(~bv[:, None, :], torch.inf), 2,
                           largest=False)
@@ -476,7 +539,7 @@ def phase_kernels(dev):
     ))
     for r in rows:
         log("kernel", **r)
-    return rows
+    return rows, checked
 
 
 def run_pair(left, right, cfg, dev, seed, gumbel=None):
@@ -1113,18 +1176,27 @@ def gn_step_split(parts):
     return out
 
 
-def host_syncs(fn):
-    """fn() and the number of host syncs it made, as torch's sync debug
-    mode warns of them (each blocking copy between host and card, and
-    each read of a card value on the host)."""
+@contextlib.contextmanager
+def sync_counter():
+    """Yields a list that holds, on exit, the number of host syncs made
+    inside, as torch's sync debug mode warns of them (each blocking copy
+    between host and card, and each read of a card value on the host)."""
+    count = []
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            out = fn()
+            yield count
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    return out, sum("called a synchronizing CUDA operation" in str(w.message) for w in caught)
+    count.append(sum("called a synchronizing CUDA operation" in str(w.message) for w in caught))
+
+
+def host_syncs(fn):
+    """fn() and the number of host syncs it made (sync_counter)."""
+    with sync_counter() as count:
+        out = fn()
+    return out, count[0]
 
 
 @contextlib.contextmanager
@@ -1663,14 +1735,11 @@ def phase_tracks_from_odometry(dev):
             "kernels phase checked")
     i, j = ODO_CLOSURE
     clo = twoview.run_two_view(frames[i], frames[j], torch.Generator(dev).manual_seed(SEED), cfg)
-    # run_sequence's information weights: sqrt(matches), 0.1x for a pair
-    # without consensus, normalised to a mean odometry weight of 1
-    nm = torch.sqrt(out.num_matches.double().clamp(min=1.0)) * torch.where(out.ok, 1.0, 0.1)
-    norm = nm.mean().clamp(min=1e-6)
-    cw = torch.sqrt(clo.num_matches.double().clamp(min=1.0)) / norm
+    # run_sequence's information weights, on the card
+    odo_w, cw = sequence.information_weights(out.num_matches, out.ok, clo.num_matches[None])
     g = pose_graph.chain_with_loop_closures(
         out.rotation_aa, out.translation, [(i, j, clo.rotation_aa, clo.translation)],
-        closure_weight=2.0, odometry_weights=(nm / norm).float(), closure_weights=[cw])
+        closure_weight=2.0, odometry_weights=odo_w, closure_weights=cw)
     require(all(t.device.type == "cuda" for t in g), "chain_with_loop_closures left the card")
     inputs = [g.poses, out.left_xy, out.right_xy, out.match_valid, out.rotation_aa,
               out.translation]
@@ -1702,10 +1771,477 @@ def phase_tracks_all(dev):
     return phase_tracks_from_odometry(dev)
 
 
+# ---------------------------------------------------------------------------
+# The sequence entry point (models/sequence.run_sequence) end to end: the
+# 100-keyframe loop-closure orbit of scripts/run_sequence_100.run_orbit
+# (BASELINE.json config #4) and a 10-keyframe turning, translating
+# sequence through the global BA (config #3).
+
+SEQ_ORBIT_FRAMES = 100
+SEQ_ORBIT_SIZE = (256, 512)
+SEQ_ORBIT_SCENE_SEED = 11  # one numpy-seeded scene seen by every frame
+# scripts/run_sequence_100.run_orbit's config: 64 keypoints a band, 2
+# octaves, 128 match slots, ratio 0.5; corrected BA (per-match depths,
+# outlier gates, the joint Schur polish, 4 starts) with 80 RANSAC trials;
+# the default auto band ladder
+_ORBIT_BASE = PipelineConfig(surf=SurfConfig(max_keypoints=64, n_octaves=2),
+                             match=MatchConfig(max_matches=128, ratio_thresh=0.5))
+SEQ_ORBIT_CFG = dataclasses.replace(_ORBIT_BASE, ba=dataclasses.replace(
+    _ORBIT_BASE.ba, reference_compat=False, joint_refine=True, outlier_reject=True,
+    multi_start=4))
+SEQ_ORBIT_KW = dict(global_ba="auto", ba_iters=10, closure_weight=8.0, pg_iters=60)
+# the slow test's bound (tests/test_sequence.py:97-98): right-side-gauge
+# rotation ATE median and max, degrees
+GATE_SEQ_ATE_DEG = (1.0, 2.0)
+# the JAX package's recorded orbit (SEQUENCE_100_r05.json: its own scene,
+# rendered from a JAX key, on an 8-device CPU mesh): ATE median and max
+# (deg); its "auto" rule skipped the global BA
+SEQ_ORBIT_RECORDED_ATE_DEG = (0.18427328049576297, 0.5131891492613272)
+# the JAX package on this orbit's frames (rendered by the port on the CPU),
+# mesh=None (tests/reference_solver_scale.py sequence_100kf_orbit on the
+# CPU of the H100 machine, 159 s): ATE median and max (deg); "auto" skipped the BA
+# (median odometry |t| 0.0189)
+SEQ_ORBIT_REFERENCE_ATE_DEG = (0.2973031873044645, 0.7698628777834117)
+SEQ_10KF_FRAMES = 10
+SEQ_10KF_CFG = corrected_mode(CFG_512)
+SEQ_10KF_CLOSURES = ((0, 2), (4, 6))
+SEQ_10KF_BA_ITERS = 15
+SEQ_WARMUP_FRAMES = 8  # the warm-up run's prefix of the frames
+# The JAX package on the same 10 frames (rendered by the port on the CPU)
+# under the same config and closures, global BA forced on, with key
+# jax.random.PRNGKey(SEED), whose draws the port's run is given
+# (reference_sequence_draws) (tests/reference_solver_scale.py
+# sequence_10kf on the H100 machine's CPU, 8 cores, jax 0.9.0; 151 s with
+# compiles): its "auto" rule's median odometry |t| and decision; the BA's
+# mean rotation error (deg) and scale-aligned mean translation error, to
+# which the port is held within 1.5x; and the rotation ATE (median, max;
+# deg) of its final and of its pose-graph poses. It misses the orbit's
+# median bound here (1.65 and 1.19 deg against 1.0: the BA over 0.25-unit
+# baselines trades yaw against lateral translation) and meets the max
+# bound (1.85 and 1.91 against 2.0), so, as for tracks_1024kf, the port's
+# median is held to 1.5x the JAX package's own and its max to 2.0.
+SEQ_10KF_REFERENCE = dict(median_t=0.27326685190200806, auto_runs_ba=True,
+                          rot_err_deg=1.9219845213375446, t_err=0.18487378677898375,
+                          ate_deg=(1.6457961919323285, 1.8529200214929789),
+                          pg_ate_deg=(1.186712373566194, 1.9131165538029131))
+SEQ_REFERENCE_FACTOR = 1.5
+SEQ_RUNS = (("sequence_100kf_orbit", SEQ_ORBIT_CFG, SEQ_ORBIT_SIZE),
+            ("sequence_10kf", SEQ_10KF_CFG, SIZE_512))
+
+
+_THREEFRY_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def threefry2x32(key, x0, x1):
+    """The Threefry-2x32 block cipher (20 rounds) as jax.random's default
+    PRNG applies it: key (2,) uint32, counters x0, x1 uint32 arrays."""
+    k0, k1 = np.uint32(key[0]), np.uint32(key[1])
+    x0, x1 = np.array(x0, np.uint32), np.array(x1, np.uint32)
+    ks = (k0, k1, k0 ^ k1 ^ np.uint32(0x1BD11BDA))
+    with np.errstate(over="ignore"):
+        x0 += ks[0]
+        x1 += ks[1]
+        for i in range(5):
+            for r in _THREEFRY_ROTATIONS[i % 2]:
+                x0 += x1
+                x1 = (x1 << np.uint32(r)) | (x1 >> np.uint32(32 - r))
+                x1 ^= x0
+            x0 += ks[(i + 1) % 3]
+            x1 += ks[(i + 2) % 3] + np.uint32(i + 1)
+    return x0, x1
+
+
+def reference_split(key, n):
+    """jax.random.split(key, n) (partitionable Threefry): row i hashes the
+    counter (0, i)."""
+    return np.stack(threefry2x32(key, np.zeros(n, np.uint32), np.arange(n, dtype=np.uint32)),
+                    axis=-1)
+
+
+def reference_gumbel(key, n):
+    """jax.random.gumbel(key, (n,)) in float32: uniform bits (the two
+    hash words XORed, 23 mantissa bits) on [tiny, 1), then -log(-log u).
+    The bits are the reference's exactly; the logs may differ by an ulp."""
+    b0, b1 = threefry2x32(key, np.zeros(n, np.uint32), np.arange(n, dtype=np.uint32))
+    f = (((b0 ^ b1) >> np.uint32(9)) | np.uint32(0x3F800000)).view(np.float32) - np.float32(1)
+    tiny = np.finfo(np.float32).tiny
+    u = np.maximum(np.float32(tiny), f * np.float32(1 - tiny) + np.float32(tiny))
+    return -np.log(-np.log(u))
+
+
+def reference_draws(key, trials, m):
+    """The RANSAC draws (trials, m) of the reference's run_two_view with
+    key (2,) uint32: trial t's from split(key, trials)[t]."""
+    return np.stack([reference_gumbel(k, m) for k in reference_split(key, trials)])
+
+
+def reference_sequence_draws(seed, n_pairs, trials, m):
+    """The reference's run_sequence draws under jax.random.PRNGKey(seed)
+    (the key [0, seed]): odometry pair k's from split(key, n_pairs)[k],
+    each closure's from the key itself. Returns (odometry (n_pairs,
+    trials, m), closures (trials, m)), float32 numpy."""
+    key = np.array([0, seed], np.uint32)
+    return (np.stack([reference_draws(k, trials, m) for k in reference_split(key, n_pairs)]),
+            reference_draws(key, trials, m))
+
+
+def orbit_eulers(n, yaw_total_deg=356.4, wobble_deg=2.0, seed=0):
+    """scripts/run_sequence_100.orbit_eulers: per-frame absolute
+    orientation, a linear yaw sweep with a smooth pitch and roll wobble."""
+    rng = np.random.default_rng(seed)
+    tt = np.linspace(0.0, 1.0, n)
+    yaw = np.deg2rad(yaw_total_deg) * tt
+    pitch = np.deg2rad(wobble_deg) * np.sin(2 * np.pi * 2.0 * tt + rng.uniform(0, 6.28))
+    roll = np.deg2rad(wobble_deg) * np.sin(2 * np.pi * 3.0 * tt + rng.uniform(0, 6.28))
+    return np.stack([roll, pitch, yaw], axis=1).astype(np.float32)
+
+
+def orbit_closures(n):
+    """scripts/run_sequence_100.run_orbit's closures: span-10 and span-25
+    skips, the quarter and half orbit, and the true loop (0, n-1)."""
+    return sorted({(i, min(i + 10, n - 1)) for i in range(0, n - 1, 10)}
+                  | {(i, min(i + 25, n - 1)) for i in range(0, n - 1, 25)}
+                  | {(0, n // 2), (n // 4, 3 * n // 4), (n // 2, n - 1)}
+                  | {(0, n - 1)})
+
+
+def orbit_frames(n, height, width, dev):
+    """n frames of one scene through orbit_eulers(n)'s rotations R_k
+    (bearings b_k = R_k b_0, rendered through R_k^T as the script does);
+    returns (frames (n, H, W, 3) uint8, R_k (n, 3, 3) float64)."""
+    from spherical_bundle_adjuster_tpu_torch.core import rotation
+
+    R = rotation.euler_to_matrix(torch.as_tensor(orbit_eulers(n), device=dev))
+    params = synthetic.texture_params_from_numpy(np.random.default_rng(SEQ_ORBIT_SCENE_SEED))
+    frames = torch.stack([synthetic.render_erp(params, r.T, height, width, dev) for r in R])
+    return frames, R.cpu().numpy().astype(np.float64)
+
+
+def trajectory_frames(n, height, width, dev):
+    """n frames along trajectory_poses(n) through the scene of ODO_SEED
+    (tracks_from_odometry's); returns (frames, poses (n, 6))."""
+    rng = np.random.default_rng(ODO_SEED)
+    params = synthetic.texture_params_from_numpy(rng)
+    dists = synthetic.disc_distances_from_numpy(rng)
+    gt = trajectory_poses(n)
+    return synthetic.render_trajectory(params, dists, gt, height, width, dev), gt
+
+
+def ate(poses, R_gt):
+    """scripts/run_sequence_100.run_orbit's rotation ATE (deg per frame),
+    in numpy: with world->camera poses p = R_i X the gauge is a RIGHT
+    factor R_i -> R_i G^-1, so R_est is aligned by the best-fit B
+    (Procrustes on sum R_est^T R_gt) applied as R_est[i] @ B; also the
+    frame-0-anchored variant (B = R_est[0]^T R_gt[0])."""
+    R_est = angle_axis_matrices(np.asarray(poses, np.float64)[:, :3])
+    R_gt = np.asarray(R_gt, np.float64)
+    M = np.einsum("nji,njk->ik", R_est, R_gt)  # sum R_est^T R_gt
+    u, _, vt = np.linalg.svd(M)
+    B = u @ np.diag([1.0, 1.0, np.sign(np.linalg.det(u @ vt))]) @ vt
+    B0 = R_est[0].T @ R_gt[0]
+    e, e0 = [], []
+    for i in range(len(R_gt)):
+        cv = (np.trace(R_gt[i].T @ (R_est[i] @ B)) - 1) / 2
+        e.append(np.degrees(np.arccos(np.clip(cv, -1, 1))))
+        cv0 = (np.trace(R_gt[i].T @ (R_est[i] @ B0)) - 1) / 2
+        e0.append(np.degrees(np.arccos(np.clip(cv0, -1, 1))))
+    return np.asarray(e), np.asarray(e0)
+
+
+def ate_summary(errs):
+    return dict(mean=float(errs.mean()), median=float(np.median(errs)),
+                p90=float(np.percentile(errs, 90)), max=float(errs.max()))
+
+
+def surf_key(ii, cfg):
+    """A K1 / K2 launch's plan key: (bands, h, w, octaves, layers)."""
+    return (ii.shape[0], ii.shape[1] - 1, ii.shape[2] - 1, cfg.n_octaves, cfg.n_octave_layers)
+
+
+def sequence_launch_shapes(cfg, height, width):
+    """The K1 / K2 plan keys and K3 banks (pairs, queries, train rows) that
+    run_sequence at height x width under cfg can launch: a front-end pass
+    of 1 to BATCH_CHUNK pairs on its band ladder (odometry passes and
+    their remainder, the closures, the warm-up prefix) and, under the auto
+    ladder, a dense re-run of 1 to BATCH_CHUNK pairs."""
+    require(twoview.BATCH_CHUNK > 0, "run_two_view_batch's default chunk must be positive")
+    fc = cfg.frontend
+    ladders = {"parity": [fc.band_pitches_deg], "dense": [DENSE_BAND_PITCHES],
+               "auto": [fc.band_pitches_deg, DENSE_BAND_PITCHES]}[fc.band_ladder]
+    keys, banks = set(), set()
+    for pitches in ladders:
+        k = len(pitches) * cfg.surf.max_keypoints
+        for p in range(1, twoview.BATCH_CHUNK + 1):
+            keys.add((2 * len(pitches) * p, height // 4, width, cfg.surf.n_octaves,
+                      cfg.surf.n_octave_layers))
+            banks.add((p, k, k))
+    return keys, banks
+
+
+@contextlib.contextmanager
+def recorded_launch_shapes():
+    """Records the shape of every K1, K2 and K3 launch made inside: K1 / K2
+    as surf_key, K3 as (pairs, queries, train rows)."""
+    shapes = dict(surf=set(), top2=set())
+    det, haar, top2 = (cuda_surf.det_pyramid_cuda, cuda_surf.haar_trace_maps_cuda,
+                       cuda_match.top2_distances_cuda)
+
+    def surf_recorder(fn):
+        def recording(ii, cfg):
+            shapes["surf"].add(surf_key(ii, cfg))
+            return fn(ii, cfg)
+        return recording
+
+    def top2_recording(d1, d2, v2):
+        if d1.ndim == 3:  # a single bank comes back here with a pair axis
+            shapes["top2"].add((d1.shape[0], d1.shape[1], d2.shape[1]))
+        return top2(d1, d2, v2)
+
+    cuda_surf.det_pyramid_cuda = surf_recorder(det)
+    cuda_surf.haar_trace_maps_cuda = surf_recorder(haar)
+    cuda_match.top2_distances_cuda = top2_recording
+    try:
+        yield shapes
+    finally:
+        cuda_surf.det_pyramid_cuda, cuda_surf.haar_trace_maps_cuda = det, haar
+        cuda_match.top2_distances_cuda = top2
+
+
+# run_sequence's stages, each a module-level callee that StageClock wraps:
+# (stage, module, attribute); a callee entered inside another stage (the
+# odometry's own run_two_view_batch) belongs to that stage
+SEQ_STAGES = (("odometry", sequence, "pairwise_odometry"),
+              ("closures", twoview, "run_two_view_batch"),
+              ("chain", sequence, "information_weights"),
+              ("chain", pose_graph, "chain_with_loop_closures"),
+              ("pose_graph", pose_graph, "optimize_pose_graph"),
+              ("tracks", sequence, "build_multiview_problem"),
+              ("ba", multiview, "solve_multiview"))
+
+
+class StageClock:
+    """Within the block, each of run_sequence's stages (SEQ_STAGES) is
+    timed: wall ms (CUDA events, the card idle at its start) and host
+    syncs (sync_counter), summed over the stage's callees."""
+
+    def __init__(self):
+        self.ms, self.syncs, self.active = {}, {}, False
+
+    def wrap(self, name, fn):
+        def staged(*args, **kwargs):
+            if self.active:
+                return fn(*args, **kwargs)
+            start, end = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            torch.cuda.synchronize()
+            start.record()
+            self.active = True
+            try:
+                with sync_counter() as count:
+                    out = fn(*args, **kwargs)
+            finally:
+                self.active = False
+            end.record()
+            torch.cuda.synchronize()
+            self.ms[name] = self.ms.get(name, 0.0) + start.elapsed_time(end)
+            self.syncs[name] = self.syncs.get(name, 0) + count[0]
+            return out
+        return staged
+
+    @contextlib.contextmanager
+    def __call__(self):
+        saved = [(mod, attr, getattr(mod, attr)) for _, mod, attr in SEQ_STAGES]
+        for (name, mod, attr), (_, _, fn) in zip(SEQ_STAGES, saved):
+            setattr(mod, attr, self.wrap(name, fn))
+        try:
+            yield self
+        finally:
+            for mod, attr, fn in saved:
+                setattr(mod, attr, fn)
+
+
+def run_sequence_timed(frames, cfg, dev, **kw):
+    """One run_sequence call (draws from a generator of seed SEED) and its
+    wall time in ms (CUDA events)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = sequence.run_sequence(frames, torch.Generator(dev).manual_seed(SEED), cfg, **kw)
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def sequence_run(name, frames, cfg, dev, checked, kw):
+    """Phase 13's readings of one run_sequence: a warm-up on the first
+    SEQ_WARMUP_FRAMES frames (with the closures inside them), the timed
+    run (launch counts set to 0 just before it, peak memory), then a run
+    with StageClock (ms and host syncs per stage); every K1 / K2 / K3
+    launch's shape recorded throughout. Fails unless every kernel launched
+    in the timed run and every launch had a shape that phase 2 checked.
+    Returns (the timed run's result, readings, launch counts)."""
+    warm = dict(kw, closures=[(i, j) for i, j in kw.get("closures", ())
+                              if j < SEQ_WARMUP_FRAMES])
+    if kw.get("gumbel") is not None:
+        warm["gumbel"] = kw["gumbel"][:SEQ_WARMUP_FRAMES - 1]
+    with recorded_launch_shapes() as shapes:
+        _, warm_ms = run_sequence_timed(frames[:SEQ_WARMUP_FRAMES], cfg, dev, **warm)
+        torch.cuda.reset_peak_memory_stats(dev)
+        (out, ms), counts = counted(lambda: run_sequence_timed(frames, cfg, dev, **kw))
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        clock = StageClock()
+        with clock():
+            staged, staged_ms = run_sequence_timed(frames, cfg, dev, **kw)
+    unchecked = unchecked_shapes(shapes, checked)
+    rd = dict(
+        launches=counts, warmup_ms=warm_ms, sequence_ms=ms, staged_sequence_ms=staged_ms,
+        stage_ms=clock.ms, stage_host_syncs=clock.syncs,
+        host_syncs=sum(clock.syncs.values()), peak_memory_gb=peak_gb,
+        staged_run_equals_timed=all(torch.equal(a, b) for a, b in zip(out, staged)),
+        k1_k2_launch_shapes=sorted(shapes["surf"]), k3_launch_banks=sorted(shapes["top2"]),
+        unchecked_launch_shapes=unchecked,
+    )
+    require(all(c > 0 for c in counts.values()), f"{name}: a kernel never launched: {counts}")
+    require(not unchecked["surf"] and not unchecked["top2"],
+            f"{name}: launches at shapes the kernels phase did not check: {unchecked}")
+    return out, rd
+
+
+def unchecked_shapes(shapes, checked):
+    """The recorded launch shapes (recorded_launch_shapes) that phase 2
+    did not hold against the plain versions."""
+    return dict(surf=sorted(shapes["surf"] - checked["surf"]),
+                top2=sorted(shapes["top2"] - checked["top2"]))
+
+
+def cost_trace(costs):
+    c = costs.cpu().numpy().astype(np.float64)
+    return dict(first=float(c[0]), last=float(c[-1]), finite=bool(np.all(np.isfinite(c))),
+                falls=bool(c[-1] < c[0]), trace=c.tolist()) if c.size else None
+
+
+def phase_sequence_orbit(dev, checked):
+    """The 100-keyframe orbit (mesh=None) through run_sequence on the card,
+    gated on the slow test's ATE bounds."""
+    h, w = SEQ_ORBIT_SIZE
+    frames, R_gt = orbit_frames(SEQ_ORBIT_FRAMES, h, w, dev)
+    closures = orbit_closures(SEQ_ORBIT_FRAMES)
+    out, rd = sequence_run("sequence_100kf_orbit", frames, SEQ_ORBIT_CFG, dev, checked,
+                           dict(closures=closures, **SEQ_ORBIT_KW))
+    errs, errs0 = ate(out.poses.cpu().numpy(), R_gt)
+    errs_pg, _ = ate(out.pg_poses.cpu().numpy(), R_gt)
+    med_t = sequence.median_baseline(out.pairwise_tran)
+    log("sequence_100kf_orbit", frames=SEQ_ORBIT_FRAMES, size=[h, w], closures=len(closures),
+        **{k: v for k, v in SEQ_ORBIT_KW.items()}, median_odometry_t=med_t,
+        auto_runs_ba=med_t >= sequence.MIN_BA_BASELINE, ba_ran=out.ba_costs.numel() > 0,
+        rot_ate_deg=ate_summary(errs), rot_ate_pose_graph_deg=ate_summary(errs_pg),
+        rot_ate_frame0_deg=ate_summary(errs0),
+        recorded_jax_ate_deg=dict(median=SEQ_ORBIT_RECORDED_ATE_DEG[0],
+                                  max=SEQ_ORBIT_RECORDED_ATE_DEG[1], ba_ran=False),
+        jax_ate_deg_same_frames=dict(median=SEQ_ORBIT_REFERENCE_ATE_DEG[0],
+                                     max=SEQ_ORBIT_REFERENCE_ATE_DEG[1], ba_ran=False),
+        pg_costs=cost_trace(out.pg_costs), ba_costs=cost_trace(out.ba_costs),
+        per_frame_err_deg=[round(float(e), 4) for e in errs], **rd)
+    med_gate, max_gate = GATE_SEQ_ATE_DEG
+    require(np.all(np.isfinite(errs)), "orbit: non-finite poses")
+    require(np.median(errs) < med_gate, f"orbit: median rotation ATE {np.median(errs)} deg")
+    require(errs.max() < max_gate, f"orbit: max rotation ATE {errs.max()} deg")
+    return rd["launches"]
+
+
+def seq_ate_limits(ref_ate):
+    """The (median, max) rotation ATE limits (deg) of a set of poses: each
+    of the slow test's bounds where the JAX package's own ATE on the same
+    frames and draws, ref_ate, meets it, else 1.5x the JAX package's."""
+    return tuple(bound if ref < bound else SEQ_REFERENCE_FACTOR * ref
+                 for ref, bound in zip(ref_ate, GATE_SEQ_ATE_DEG))
+
+
+def seq_10kf_errors(out, gt):
+    """Rotation ATE (deg per frame) of out.poses and out.pg_poses, and the
+    mean rotation (deg) and scale-aligned translation errors of each."""
+    R_gt = angle_axis_matrices(gt[:, :3])
+    poses, pg_poses = out.poses.cpu().numpy(), out.pg_poses.cpu().numpy()
+    return dict(ate=ate(poses, R_gt)[0], pg_ate=ate(pg_poses, R_gt)[0],
+                ba=scaled_pose_errors(poses, gt), pg=scaled_pose_errors(pg_poses, gt))
+
+
+def phase_sequence_10kf(dev, checked):
+    """10 frames along trajectory_poses(10) at 512x1024 in the bench's
+    corrected mode, two closures, through the global BA, on the JAX
+    package's RANSAC draws for key SEED (reference_sequence_draws), so both
+    packages solve from the same draws; gated on the "auto" decision,
+    falling finite cost traces, 1.5x the JAX package's BA errors on the
+    same frames and draws, and the orbit's ATE bounds (1.5x the JAX
+    package's ATE on a bound it misses: seq_ate_limits). A run on the
+    port's own draws (from a generator of seed SEED) is logged beside it."""
+    h, w = SIZE_512
+    frames, gt = trajectory_frames(SEQ_10KF_FRAMES, h, w, dev)
+    ref, cfg = SEQ_10KF_REFERENCE, SEQ_10KF_CFG
+    odo_draws, closure_draws = reference_sequence_draws(
+        SEED, SEQ_10KF_FRAMES - 1, cfg.ransac.num_trials, cfg.match.max_matches)
+    kw = dict(closures=list(SEQ_10KF_CLOSURES), ba_iters=SEQ_10KF_BA_ITERS,
+              global_ba="auto" if ref["auto_runs_ba"] else True)
+    out, rd = sequence_run("sequence_10kf", frames, cfg, dev, checked,
+                           dict(kw, gumbel=torch.from_numpy(odo_draws).to(dev),
+                                closure_gumbel=torch.from_numpy(closure_draws).to(dev)))
+    with recorded_launch_shapes() as own_shapes:
+        own, own_ms = run_sequence_timed(frames, cfg, dev, **kw)
+    e, e_own = seq_10kf_errors(out, gt), seq_10kf_errors(own, gt)
+    med_t = sequence.median_baseline(out.pairwise_tran)
+    auto = med_t >= sequence.MIN_BA_BASELINE
+    pg, ba = cost_trace(out.pg_costs), cost_trace(out.ba_costs)
+    limits = (SEQ_REFERENCE_FACTOR * ref["rot_err_deg"], SEQ_REFERENCE_FACTOR * ref["t_err"])
+    ate_limits = {"poses": seq_ate_limits(ref["ate_deg"]),
+                  "pg_poses": seq_ate_limits(ref["pg_ate_deg"])}
+    unchecked_own = unchecked_shapes(own_shapes, checked)
+    log("sequence_10kf", frames=SEQ_10KF_FRAMES, size=[h, w], yaw_step_deg=ODO_YAW_DEG,
+        step=ODO_STEP, closures=list(SEQ_10KF_CLOSURES), global_ba=kw["global_ba"],
+        ba_iters=SEQ_10KF_BA_ITERS, draws="reference (jax.random.PRNGKey(SEED))",
+        median_odometry_t=med_t, auto_runs_ba=auto,
+        reference=ref, ba_rot_err_deg=e["ba"][0], ba_t_err=e["ba"][1], limits=limits,
+        ate_limits_deg=ate_limits,
+        pose_graph_rot_err_deg=e["pg"][0], pose_graph_t_err=e["pg"][1],
+        rot_ate_deg=ate_summary(e["ate"]), rot_ate_pose_graph_deg=ate_summary(e["pg_ate"]),
+        pg_costs=pg, ba_costs=ba,
+        own_draws=dict(sequence_ms=own_ms, median_odometry_t=sequence.median_baseline(
+            own.pairwise_tran), ba_ran=own.ba_costs.numel() > 0,
+            ba_rot_err_deg=e_own["ba"][0], ba_t_err=e_own["ba"][1],
+            pose_graph_rot_err_deg=e_own["pg"][0], pose_graph_t_err=e_own["pg"][1],
+            rot_ate_deg=ate_summary(e_own["ate"]),
+            rot_ate_pose_graph_deg=ate_summary(e_own["pg_ate"]),
+            unchecked_launch_shapes=unchecked_own),
+        **rd)
+    require(not unchecked_own["surf"] and not unchecked_own["top2"],
+            f"10 kf, own draws: launches at shapes the kernels phase did not check: "
+            f"{unchecked_own}")
+    require(auto == ref["auto_runs_ba"], f"10 kf: the auto rule decides {auto} (median |t| "
+            f"{med_t}), the JAX package {ref['auto_runs_ba']} ({ref['median_t']})")
+    require(ba is not None and len(ba["trace"]) == SEQ_10KF_BA_ITERS, "10 kf: the BA did not run")
+    for label, c in (("pose graph", pg), ("BA", ba)):
+        require(c["finite"] and c["falls"], f"10 kf: {label} cost trace {c['trace']}")
+    for label, errs, lim in (("poses", e["ate"], ate_limits["poses"]),
+                             ("pose-graph poses", e["pg_ate"], ate_limits["pg_poses"])):
+        require(np.median(errs) < lim[0] and errs.max() < lim[1],
+                f"10 kf: {label} rotation ATE median {np.median(errs)}, max {errs.max()} deg "
+                f"(limits {lim})")
+    rot, tran = e["ba"]
+    require(rot < limits[0] and tran < limits[1],
+            f"10 kf: BA errors {rot} deg, {tran} against 1.5x the JAX package's {limits}")
+    return rd["launches"]
+
+
+def phase_sequence(dev, checked):
+    """Phase 13: run_sequence on the orbit and on the 10-keyframe sequence;
+    returns each run's launch counts."""
+    return {"sequence_100kf_orbit": phase_sequence_orbit(dev, checked),
+            "sequence_10kf": phase_sequence_10kf(dev, checked)}
+
+
 def main():
     dev, smi = phase_device()
     phase_build()
-    rows = phase_kernels(dev)
+    rows, checked = phase_kernels(dev)
     counts = phase_slice(dev)
     by_phase = {"slice_2k_corrected": (phase_2k_corrected(dev), N_PAIRS_2K)}
     for mode, c in phase_512(dev).items():
@@ -1717,6 +2253,7 @@ def main():
     per_frontend = phase_frontends(dev)
     phase_solvers(dev)
     per_batch["tracks_from_odometry"] = phase_tracks_all(dev)
+    per_batch.update(phase_sequence(dev, checked))
     for r, sym in zip(rows, ("sba_det_pyramid", "sba_haar_trace", "sba_top2")):
         r["launches"] = counts[sym]
         r["launches_per_pair"] = counts[sym] / N_PAIRS_2K

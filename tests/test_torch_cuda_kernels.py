@@ -474,3 +474,40 @@ def test_tracks_build_on_the_card_matches_the_cpu(dev):
     cpu = tracks.build_multiview_problem(*(a.cpu() for a in inputs), w, h)
     gaps = chip_smoke.problem_gaps(card, cpu, chip_smoke.landmark_det(fields, w, h))
     assert gaps["within"], gaps
+
+
+def test_run_sequence_from_numpy_frames_runs_on_the_card(dev):
+    """models/sequence.run_sequence on numpy frames (5 frames along
+    chip_smoke.trajectory_poses at 128x256, one closure, the global BA):
+    the frames go to the card, K1, K2 and K3 launch, every result field
+    is on the card and finite (the BA's cost trace but for the NaN of a
+    rejected step, min(cost0, NaN) as in the reference, with its last
+    cost finite and below its first), and the pairwise rotations lie
+    within 0.5 deg (the compat parity bound) of the port's CPU run with
+    the same draws (a batch row on the card may round its consensus start
+    otherwise: card_rounding.py)."""
+    import chip_smoke
+    from spherical_bundle_adjuster_tpu_torch.models import sequence
+    from spherical_bundle_adjuster_tpu_torch.solver import epipolar
+    from spherical_bundle_adjuster_tpu_torch.utils.config import BaConfig
+
+    cfg = PipelineConfig(surf=SurfConfig(max_keypoints=128, n_octaves=2),
+                         match=MatchConfig(max_matches=256, ratio_thresh=0.6),
+                         ba=BaConfig(reference_compat=False))
+    frames, _ = chip_smoke.trajectory_frames(5, 128, 256, "cpu")
+    g = torch.Generator().manual_seed(0)
+    draws = epipolar.gumbel_draws(cfg.ransac.num_trials, cfg.match.max_matches, g, "cpu", (4,))
+    one = epipolar.gumbel_draws(cfg.ransac.num_trials, cfg.match.max_matches, g, "cpu")
+    kw = dict(closures=[(0, 2)], global_ba=True)
+    before = [k.launches for k in chip_smoke.LAUNCHED]
+    card = sequence.run_sequence(frames.numpy(), None, cfg, gumbel=draws.to(dev),
+                                 closure_gumbel=one.to(dev), **kw)
+    torch.cuda.synchronize()
+    assert all(k.launches > b for k, b in zip(chip_smoke.LAUNCHED, before))
+    assert all(t.device.type == "cuda" for t in card)
+    assert all(bool(torch.isfinite(t).all()) for t in card[:-2] + card[-1:])
+    ba = card.ba_costs.cpu().numpy()
+    assert ba.shape == (15,) and np.isfinite(ba[-1]) and ba[-1] < ba[0], ba
+    cpu = sequence.run_sequence(frames, None, cfg, gumbel=draws, closure_gumbel=one, **kw)
+    for a, b in zip(card.pairwise_rot.cpu().numpy(), cpu.pairwise_rot.numpy()):
+        assert chip_smoke.rot_err_deg_host(a, chip_smoke.angle_axis_matrix(b)) < 0.5

@@ -18,7 +18,12 @@ torch.set_num_threads(1)
 
 Q, SUB = cuda_match.Q_TILE, cuda_match.SUB_ROWS
 GRID, PER = 16, 8  # the kernel's 16 x 16 thread grid, 8 x 8 outputs each
-SHAPES = [(2048, 2048), (1024, 1024), (1, 64), (100, 333), (300, 2100), (8192, 8192)]
+# the 2K bank, the 512x1024 bank (4 bands x 256 keypoints; also the
+# 10-keyframe sequence's), the orbit sequence's parity and dense banks
+# (4 and 8 bands x 64 keypoints: chip_smoke.sequence_launch_shapes), ragged
+# and tiny banks, and an 8K-scale bank
+SHAPES = [(2048, 2048), (1024, 1024), (256, 256), (512, 512), (1, 64), (100, 333),
+          (300, 2100), (8192, 8192)]
 H100_SMS = 132
 
 
@@ -202,7 +207,7 @@ def _replay_batch(dist2s, plan, k1, k2):
     return out, writes, count
 
 
-@pytest.mark.parametrize("k1,k2", [(100, 333), (300, 2100), (1, 64)])
+@pytest.mark.parametrize("k1,k2", [(100, 333), (300, 2100), (1, 64), (256, 256), (512, 512)])
 def test_replayed_batched_merge_gives_each_pairs_plain_indices(k1, k2):
     """Three pairs in one launch: every pair's indices are the plain
     version's of that pair alone (ties planted per pair), every scratch

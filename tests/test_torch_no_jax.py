@@ -86,6 +86,25 @@ def test_synthetic_entry_points_default_to_the_card(fn):
     assert inspect.signature(getattr(synthetic, fn)).parameters["device"].default == "cuda"
 
 
+def test_run_sequence_puts_frames_that_are_not_a_tensor_on_the_card(monkeypatch):
+    """models/sequence.run_sequence runs on the frames' device, and frames
+    that are not a tensor go to the card."""
+    import numpy as np
+    import torch
+    from spherical_bundle_adjuster_tpu_torch.models import sequence
+
+    devices = []
+
+    def as_tensor(data, *args, device=None, **kw):
+        devices.append(str(device))
+        raise StopIteration
+
+    monkeypatch.setattr(torch, "as_tensor", as_tensor)
+    with pytest.raises(StopIteration):
+        sequence.run_sequence(np.zeros((3, 16, 32, 3), np.uint8))
+    assert devices == ["cuda"]
+
+
 def test_chip_smoke_fails_without_a_card():
     """No CPU fallback: without CUDA the script exits non-zero and prints
     no result line."""
