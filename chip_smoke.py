@@ -99,7 +99,26 @@ Phases, each printing its own line:
      warm-up on the first 8 frames, then the timed run (CUDA events, peak
      memory, launch counts), then a run with per-stage CUDA events and
      host syncs; every K1 / K2 / K3 launch's shape must be one phase 2
-     checked.
+     checked;
+ 14. distributed (parallel/mesh, parallel/dist_ba on torch.distributed;
+     NCCL refuses two ranks on one card, so NCCL runs one rank and gloo
+     DIST_WORLD ranks that share the card, spawned once, every tensor on
+     the card, a process-group timeout and a deadline for the whole run):
+     dist_nccl_1rank, multiview_pcg_1024kf's problem on a 1-rank NCCL
+     mesh in this process, bit-identical to phase 11's solve;
+     dist_multiview_256kf and dist_multiview_1024kf, phase 11's problems
+     landmark-sharded over 4 gloo ranks, on phase 11's gates and against
+     its solves; dist_batch_2d, two 256-keyframe problems on a 2 x 2 mesh,
+     each on the gates; dist_twoview_batch, phase 7's 64-pair batch over 4
+     ranks (16 pairs each), every row against phase 7's batch (identical
+     match lists, rotation within BATCH_GAP_LIMIT_DEG), K1 / K2 / K3 once a
+     rank at shapes phase 2 checked; dist_sequence_10kf, phase 13's
+     10-keyframe sequence over 2 ranks on the JAX package's draws, on
+     phase 13's gates and against its mesh=None result. Each logs ms per
+     solve and per GN step, all-reduce calls and bytes per GN step against
+     collective_bytes_per_gn_iter, whether the ranks ended bit-identical,
+     peak memory per rank and the backend, beside the card's name and
+     power limit. Any rank's failure or timeout fails the script.
 
 Each pipeline phase sets the kernels' launch counts to 0 before its
 measured runs and fails if a kernel of the path was not launched.
@@ -112,11 +131,14 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import datetime
 import json
 import math
 import os
 import subprocess
 import sys
+import tempfile
+import time
 import warnings
 
 import numpy as np
@@ -131,6 +153,8 @@ from spherical_bundle_adjuster_tpu_torch.models import (
 from spherical_bundle_adjuster_tpu_torch.ops import (
     cuda_match, cuda_surf, integral, kernels, segment, warp,
 )
+from spherical_bundle_adjuster_tpu_torch.parallel import dist_ba, launch
+from spherical_bundle_adjuster_tpu_torch.parallel import mesh as mesh_lib
 from spherical_bundle_adjuster_tpu_torch.solver import epipolar, pose_graph
 from spherical_bundle_adjuster_tpu_torch.solver import pcg as pcg_mod
 from spherical_bundle_adjuster_tpu_torch.utils import synthetic
@@ -813,7 +837,7 @@ def phase_batch(dev):
     require(max(gaps) <= BATCH_GAP_LIMIT_DEG, f"batch pair {int(np.argmax(gaps))}: rotation "
             f"{max(gaps)} deg from its single run (limit {BATCH_GAP_LIMIT_DEG})")
     gate_512(acc, "compat", "batch_512x1024")
-    return counts
+    return counts, out
 
 
 def angle_axis_of(euler):
@@ -1382,6 +1406,7 @@ def phase_multiview(dev, name, C, L, P, pose_noise, seed, kw):
     log(name, cameras=C, landmarks=L, obs_per_landmark=P, observations=L * P, seed=seed,
         linear_solver=solver, solve_kwargs=kw, **vals, **rd, **extra)
     require(not fails, f"{name}: gates failed: {fails}")
+    return dict(fields=fields, poses_gt=poses_gt, solved=solved, costs=costs)
 
 
 def phase_pose_graph(dev, name, n, n_closures, seed, kw):
@@ -1419,13 +1444,15 @@ def cpu_gap(solve, cpu_inputs, card_result, card_costs):
 
 def phase_solvers(dev):
     """The global solvers at the keyframe counts of configs #3-#5, each
-    gated on its JAX test's gates."""
+    gated on its JAX test's gates; returns each multiview phase's problem
+    and solve (phase_multiview)."""
     _, n = host_syncs(lambda: torch.ones(1, device=dev).sum().item())
     require(n == 1, f"the sync counter saw {n} syncs in one .item()")
-    for name, C, L, P, noise, seed, kw in MULTIVIEW_PHASES:
-        phase_multiview(dev, name, C, L, P, noise, seed, kw)
+    solves = {name: phase_multiview(dev, name, C, L, P, noise, seed, kw)
+              for name, C, L, P, noise, seed, kw in MULTIVIEW_PHASES}
     for name, n, k, seed, kw in POSE_GRAPH_PHASES:
         phase_pose_graph(dev, name, n, k, seed, kw)
+    return solves
 
 
 # ---------------------------------------------------------------------------
@@ -2228,14 +2255,385 @@ def phase_sequence_10kf(dev, checked):
     rot, tran = e["ba"]
     require(rot < limits[0] and tran < limits[1],
             f"10 kf: BA errors {rot} deg, {tran} against 1.5x the JAX package's {limits}")
-    return rd["launches"]
+    return rd["launches"], out
 
 
 def phase_sequence(dev, checked):
     """Phase 13: run_sequence on the orbit and on the 10-keyframe sequence;
-    returns each run's launch counts."""
-    return {"sequence_100kf_orbit": phase_sequence_orbit(dev, checked),
-            "sequence_10kf": phase_sequence_10kf(dev, checked)}
+    returns each run's launch counts and the 10-keyframe run's result."""
+    orbit = phase_sequence_orbit(dev, checked)
+    counts, out = phase_sequence_10kf(dev, checked)
+    return {"sequence_100kf_orbit": orbit, "sequence_10kf": counts}, out
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: the distributed layer (parallel/mesh, parallel/dist_ba) on one
+# card. NCCL refuses two ranks on one device, so NCCL runs one rank (in
+# this process) and gloo runs DIST_WORLD spawned ranks that share the card,
+# with every tensor on it (gloo stages its collectives through the host).
+
+DIST_WORLD = 4
+DIST_TIMEOUT_S = 120   # the process groups' timeout: a stuck collective fails
+DIST_DEADLINE_S = 300  # the gloo ranks' whole run
+DIST_BATCH_SEEDS = (3, 4)  # dist_batch_2d: multiview_pcg_256kf's problem and a second seed
+DIST_SEQ_RANKS = 2
+# dist_sequence_10kf against phase 13's mesh=None run (tests/
+# test_torch_sequence.py::test_sequence_over_a_two_rank_mesh's bounds):
+# pose-graph poses (rad, units), BA cost trace (share of its first cost),
+# final poses (rad, units)
+# test_translating_sequence_with_global_ba_parity's bound for the cost
+# trace (1% of the first cost), not the 1e-3 that the CPU test holds
+# between the 2-rank and the mesh=None run: on the CPU the two give the
+# same bits (rank 1's rows hold no valid track), on the card the
+# reductions round by shape (the half table's first cost is 1.4e-5 apart
+# already) and the BA's ill-conditioned landmark step carries that to
+# 1.4e-3 of the first cost (first card run)
+DIST_SEQ_PG_GAP = (1e-4, 5e-4)
+DIST_SEQ_COST_GAP = 1e-2
+DIST_SEQ_POSE_GAP = (1e-3, 2e-3)
+DIST_PROBE_CALLS = 50  # all-reduces a probe times
+
+
+def _multiview_phase(name):
+    """phase 11's entry of MULTIVIEW_PHASES named `name`."""
+    return next(x for x in MULTIVIEW_PHASES if x[0] == name)
+
+
+def _pose_gap(p, q):
+    """(largest rotation angle in rad, largest translation gap) between two
+    (N, 6) stacks of poses."""
+    p, q = p.cpu().numpy(), q.cpu().numpy()
+    rot = max(rot_err_deg_host(a, angle_axis_matrix(b)) for a, b in zip(p[:, :3], q[:, :3]))
+    return float(np.radians(rot)), float(np.abs(p[:, 3:] - q[:, 3:]).max())
+
+
+def dist_solve_readings(solve, axis, kw, C):
+    """solve() -> (problem, costs) after a warm-up: ms per solve (3 runs,
+    CUDA events), all-reduce calls and bytes per GN step (the axis's
+    counts over one solve) against collective_bytes_per_gn_iter, the Schur
+    setup's bytes, and peak memory. Returns (the first run's result,
+    readings)."""
+    solve()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    axis.reset()
+    out = solve()
+    torch.cuda.synchronize()
+    reduces = {b: n for (op, b), n in axis.traffic.items() if op == "all_reduce"}
+    setup = (2 * C * 36 + 2 * C * 6) * 4
+    times = [event_ms(solve, reps=1) for _ in range(3)]
+    ms, num_iters = float(np.median(times)), kw["num_iters"]
+    return out, dict(
+        solve_ms=times, median_solve_ms=ms, ms_per_gn_step=ms / num_iters,
+        all_reduce_calls_per_gn_step=sum(reduces.values()) / num_iters,
+        all_reduce_bytes_per_gn_step=sum(b * n for b, n in reduces.items()) / num_iters,
+        setup_bytes_per_gn_step=setup * reduces.get(setup, 0) / num_iters,
+        formula_bytes_per_gn_step=dist_ba.collective_bytes_per_gn_iter(
+            C, kw["linear_solver"], kw["cg_iters"]),
+        formula_setup_bytes=setup, traffic={f"{op} {b} B": n for (op, b), n in axis.traffic.items()},
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def all_reduce_probe(axis, dev, places=("cuda", "cpu"), n=DIST_PROBE_CALLS):
+    """Wall ms per all_reduce of one CG iteration's (C, 6) float32 vector
+    at C = 1024 over the axis, from card memory and from host memory: n
+    calls in a row after one, the card idle before and after (host
+    clock). Every rank of the axis must call it."""
+    out = {}
+    for place in places:
+        x = torch.zeros(1024, 6, device=dev if place == "cuda" else "cpu")
+        axis.all_reduce(x)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            axis.all_reduce(x)
+        torch.cuda.synchronize()
+        out[f"{place}_ms_per_call"] = 1e3 * (time.perf_counter() - t0) / n
+    axis.reset()
+    return out
+
+
+def _rank_solve(m, fields, kw, dev):
+    prob = multiview.problem_from_numpy(fields, dev)
+    (solved, costs), rd = dist_solve_readings(
+        lambda: dist_ba.solve_multiview_sharded(prob, m, **kw), m.axis("data"), kw,
+        prob.poses.shape[0])
+    return dict(poses=solved.poses.cpu(), landmarks=solved.landmarks.cpu(), costs=costs.cpu(),
+                digest=kernel_times.digest((solved.poses, solved.landmarks, costs)), **rd)
+
+
+def _rank_batch_2d(m, fields, kw, dev):
+    probs = multiview.MultiViewProblem(*(torch.as_tensor(np.stack(f), device=dev)
+                                         for f in zip(*fields)))
+    (solved, costs), rd = dist_solve_readings(
+        lambda: dist_ba.solve_multiview_batch_sharded(probs, m, **kw), m.axis("data"), kw,
+        probs.poses.shape[1])
+    return dict(poses=solved.poses.cpu(), costs=costs.cpu(), coords=m.coords,
+                digest=kernel_times.digest((solved.poses, solved.landmarks, costs)), **rd)
+
+
+def _rank_twoview(m, dev, checked):
+    """phase 7's 64-pair compat batch through batched_two_view_sharded: a
+    warm-up, then one run with the launch counts set to 0 just before it
+    and every launch's shape recorded."""
+    h, w = SIZE_512
+    pairs = [make_pair(i, h, w, dev) for i in range(N_DISTINCT)]
+    lefts, rights = (x.repeat(N_BATCH // N_DISTINCT, 1, 1, 1) for x in stacked(pairs))
+
+    def run():
+        return dist_ba.batched_two_view_sharded(lefts, rights, torch.Generator(dev).manual_seed(SEED),
+                                                m, CFG_512)
+
+    run()
+    torch.cuda.reset_peak_memory_stats()
+    with recorded_launch_shapes() as shapes:
+        out, counts = counted(run)
+    ms = [event_ms(run, reps=1) for _ in range(2)]
+    return dict(out=type(out)(*(f.cpu() for f in out[:-1]), telemetry=None),
+                digest=kernel_times.digest(out[:-1]), launches=counts, batch_ms=ms,
+                median_batch_ms=float(np.median(ms)),
+                images_digest=kernel_times.digest((lefts, rights)),
+                unchecked_launch_shapes=unchecked_shapes(shapes, checked),
+                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def _rank_sequence(m, frames, odo, closure, dev, checked):
+    """phase 13's 10-keyframe sequence over the mesh, on the JAX package's
+    draws: a warm-up on the first SEQ_WARMUP_FRAMES frames, then one run
+    with the launch counts set to 0 just before it, every launch's shape
+    recorded and StageClock timing each stage (the BA: solve_multiview
+    inside solve_multiview_sharded); also the valid landmarks in each
+    rank's rows."""
+    frames = torch.from_numpy(frames).to(dev)
+    ref = SEQ_10KF_REFERENCE
+    kw = dict(closures=list(SEQ_10KF_CLOSURES), ba_iters=SEQ_10KF_BA_ITERS,
+              global_ba="auto" if ref["auto_runs_ba"] else True, mesh=m,
+              gumbel=torch.from_numpy(odo).to(dev), closure_gumbel=torch.from_numpy(closure).to(dev))
+    warm = dict(kw, gumbel=kw["gumbel"][:SEQ_WARMUP_FRAMES - 1],
+                closures=[(i, j) for i, j in kw["closures"] if j < SEQ_WARMUP_FRAMES])
+    run_sequence_timed(frames[:SEQ_WARMUP_FRAMES], SEQ_10KF_CFG, dev, **warm)
+    valid, build = [], sequence.build_multiview_problem
+
+    def recording(*args, **kwargs):
+        prob = build(*args, **kwargs)
+        valid.append(mesh_lib.shard_leading(m, prob.lm_valid).sum())
+        return prob
+
+    sequence.build_multiview_problem = recording
+    axis = m.axis("data")
+    axis.reset()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with recorded_launch_shapes() as shapes:
+            clock = StageClock()
+            with clock():
+                (out, ms), counts = counted(
+                    lambda: run_sequence_timed(frames, SEQ_10KF_CFG, dev, **kw))
+    finally:
+        sequence.build_multiview_problem = build
+    return dict(out=type(out)(*(f.cpu() for f in out)), digest=kernel_times.digest(out),
+                sequence_ms=ms,
+                stage_ms=clock.ms, launches=counts,
+                valid_landmarks_in_rank=int(valid[0]) if valid else None,
+                ba_all_reduce_calls=axis.calls(), ba_all_reduce_bytes=axis.bytes(),
+                unchecked_launch_shapes=unchecked_shapes(shapes, checked),
+                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def dist_rank_main(rank, world, path, checked):
+    """One gloo rank of phase 14 (spawned by parallel/launch.run_ranks):
+    every rank builds every mesh (new_group is collective over the job),
+    then runs each sub-phase it is in. Returns its readings; the poses,
+    landmarks and outputs themselves only from rank 0."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    inp = torch.load(path, weights_only=False)
+    timeout = datetime.timedelta(seconds=DIST_TIMEOUT_S)
+    m_all = mesh_lib.make_mesh(world, timeout=timeout)
+    m_seq = mesh_lib.make_mesh(DIST_SEQ_RANKS, timeout=timeout)
+    m_2d = mesh_lib.make_mesh_2d(2, world // 2, timeout=timeout)
+    out = {"all_reduce_probe": all_reduce_probe(m_all.axis("data"), dev)}
+    kw256, kw1024 = (_multiview_phase(n)[-1] for n in ("multiview_pcg_256kf",
+                                                        "multiview_pcg_1024kf"))
+    out["dist_multiview_256kf"] = _rank_solve(m_all, inp["256kf"], kw256, dev)
+    out["dist_multiview_1024kf"] = _rank_solve(m_all, inp["1024kf"], kw1024, dev)
+    out["dist_batch_2d"] = _rank_batch_2d(m_2d, inp["batch_2d"], kw256, dev)
+    out["dist_twoview_batch"] = _rank_twoview(m_all, dev, checked)
+    if m_seq.coords is not None:
+        out["dist_sequence_10kf"] = _rank_sequence(m_seq, inp["seq_frames"], inp["seq_odo"],
+                                                   inp["seq_closure"], dev, checked)
+    if rank:
+        for r in out.values():
+            for k in ("poses", "landmarks", "costs", "out"):
+                r.pop(k, None)
+    return out
+
+
+def dist_nccl_1rank(dev, ref, smi):
+    """multiview_pcg_1024kf's problem on a 1-rank NCCL mesh in this process,
+    against phase 11's solve bit for bit."""
+    name = "multiview_pcg_1024kf"
+    kw = _multiview_phase(name)[-1]
+    mesh_lib.init_distributed(f"localhost:{launch.free_port()}", 1, 0, backend="nccl",
+                              timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
+    try:
+        m = mesh_lib.make_mesh(1, timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
+        backend = torch.distributed.get_backend()
+        probe = all_reduce_probe(m.axis("data"), dev, places=("cuda",))
+        got = _rank_solve(m, ref["fields"], kw, dev)
+    finally:
+        torch.distributed.destroy_process_group()
+    same = got["digest"] == kernel_times.digest((ref["solved"].poses, ref["solved"].landmarks,
+                                                 ref["costs"]))
+    log("dist_nccl_1rank", card=smi, backend=backend, ranks=1, problem=name, solve_kwargs=kw,
+        bit_identical_to_phase_11=same, all_reduce_probe=probe,
+        **{k: v for k, v in got.items() if k not in ("poses", "landmarks", "costs")})
+    require(backend == "nccl", f"dist_nccl_1rank ran on {backend}")
+    require(same, "dist_nccl_1rank: the 1-rank NCCL solve differs from phase 11's")
+
+
+def _gate_dist_solve(name, r0, ranks, ref_solved, ref_costs, fields, poses_gt, kind, smi,
+                     extra=None):
+    c0 = float(multiview.total_cost(multiview.problem_from_numpy(fields, "cpu")))
+    vals, fails = solver_gates(kind, c0, r0["costs"].numpy(), r0["poses"].numpy(), poses_gt)
+    same = len({r["digest"] for r in ranks}) == 1
+    pose_gap = (r0["poses"] - ref_solved.poses.cpu()).abs().max().item()
+    log(name, card=smi, backend="gloo", ranks=len(ranks), **vals,
+        single_process_final_cost=float(ref_costs[-1]), max_pose_gap_to_single=pose_gap,
+        ranks_bit_identical=same, peak_memory_gb_per_rank=[r["peak_memory_gb"] for r in ranks],
+        **{k: v for k, v in r0.items() if k not in ("poses", "landmarks", "costs", "digest",
+                                                    "peak_memory_gb", "coords")}, **(extra or {}))
+    require(not fails, f"{name}: gates failed: {fails}")
+    require(same, f"{name}: ranks ended with different bits")
+    require(r0["setup_bytes_per_gn_step"] == r0["formula_setup_bytes"],
+            f"{name}: Schur setup all-reduces {r0['setup_bytes_per_gn_step']} B a GN step")
+    require(r0["all_reduce_bytes_per_gn_step"] <= r0["formula_bytes_per_gn_step"],
+            f"{name}: {r0['all_reduce_bytes_per_gn_step']} B a GN step over the formula")
+    return pose_gap
+
+
+def phase_distributed(dev, smi, checked, solves, batch_out, seq_out):
+    """Phase 14: the 1-rank NCCL solve here, then DIST_WORLD gloo ranks on
+    the card; fails on any rank's failure, a timeout or a missed gate."""
+    dist_nccl_1rank(dev, solves["multiview_pcg_1024kf"], smi)
+    _, C, L, P, noise, _, kw256 = _multiview_phase("multiview_pcg_256kf")
+    fields_b, gt_b = synth_multiview(C, L, P, noise, DIST_BATCH_SEEDS[1])
+    single_b = multiview.solve_multiview(multiview.problem_from_numpy(fields_b, dev), **kw256)
+    h, w = SIZE_512
+    frames, gt = trajectory_frames(SEQ_10KF_FRAMES, h, w, dev)
+    odo, closure = reference_sequence_draws(SEED, SEQ_10KF_FRAMES - 1,
+                                            SEQ_10KF_CFG.ransac.num_trials,
+                                            SEQ_10KF_CFG.match.max_matches)
+    inputs = {"256kf": solves["multiview_pcg_256kf"]["fields"],
+              "1024kf": solves["multiview_pcg_1024kf"]["fields"],
+              "batch_2d": [solves["multiview_pcg_256kf"]["fields"], fields_b],
+              "seq_frames": frames.cpu().numpy(), "seq_odo": odo, "seq_closure": closure}
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "inputs.pt")
+        torch.save(inputs, path)
+        t0 = time.perf_counter()
+        ranks = launch.run_ranks(dist_rank_main, DIST_WORLD, args=(path, checked),
+                                 init_method=f"tcp://localhost:{launch.free_port()}",
+                                 timeout_s=DIST_TIMEOUT_S, deadline_s=DIST_DEADLINE_S)
+        ranks_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    log("dist_ranks", card=smi, backend="gloo", ranks=DIST_WORLD, seconds=ranks_s,
+        all_reduce_probe=[r["all_reduce_probe"] for r in ranks],
+        note="spawn, imports, every sub-phase below")
+
+    for name, key in (("dist_multiview_256kf", "multiview_pcg_256kf"),
+                      ("dist_multiview_1024kf", "multiview_pcg_1024kf")):
+        ref = solves[key]
+        _gate_dist_solve(name, r0[name], [r[name] for r in ranks], ref["solved"], ref["costs"],
+                         ref["fields"], ref["poses_gt"], "multiview_pcg", smi)
+
+    b = r0["dist_batch_2d"]
+    for i, (fields, poses_gt, (solved, costs)) in enumerate(zip(
+            inputs["batch_2d"], (solves["multiview_pcg_256kf"]["poses_gt"], gt_b),
+            ((solves["multiview_pcg_256kf"]["solved"], solves["multiview_pcg_256kf"]["costs"]),
+             single_b))):
+        one = dict(b, poses=b["poses"][i], costs=b["costs"][i])
+        _gate_dist_solve(f"dist_batch_2d_problem_{i}", one, [r["dist_batch_2d"] for r in ranks],
+                         solved, costs, fields, poses_gt, "multiview_pcg", smi,
+                         dict(seed=DIST_BATCH_SEEDS[i], mesh={"pairs": 2, "data": DIST_WORLD // 2},
+                              coords=[r["dist_batch_2d"]["coords"] for r in ranks]))
+
+    tv = [r["dist_twoview_batch"] for r in ranks]
+    got = tv[0]["out"]
+    same = [all(torch.equal(getattr(got, f)[i], getattr(batch_out, f)[i].cpu())
+                for f in ("match_valid", "left_xy", "right_xy")) for i in range(N_BATCH)]
+    gaps = [rot_err_deg_host(batch_out.rotation_aa[i].cpu().numpy(),
+                             angle_axis_matrix(got.rotation_aa[i].numpy())) for i in range(N_BATCH)]
+    log("dist_twoview_batch", card=smi, backend="gloo", ranks=DIST_WORLD, pairs=N_BATCH,
+        pairs_per_rank=N_BATCH // DIST_WORLD, launches_per_rank=[r["launches"] for r in tv],
+        batch_ms=tv[0]["batch_ms"], median_batch_ms=tv[0]["median_batch_ms"],
+        pairs_per_s=1e3 * N_BATCH / tv[0]["median_batch_ms"],
+        peak_memory_gb_per_rank=[r["peak_memory_gb"] for r in tv],
+        ranks_bit_identical=len({r["digest"] for r in tv}) == 1,
+        same_images_on_every_rank=len({r["images_digest"] for r in tv}) == 1,
+        same_matches_as_unsharded=sum(same), max_rot_gap_to_unsharded_deg=max(gaps),
+        gap_limit_deg=BATCH_GAP_LIMIT_DEG,
+        unchecked_launch_shapes=[r["unchecked_launch_shapes"] for r in tv])
+    for r, x in enumerate(tv):
+        require(all(c == 1 for c in x["launches"].values()),
+                f"dist_twoview_batch rank {r}: launches {x['launches']}, expected 1 each")
+        require(not any(x["unchecked_launch_shapes"].values()),
+                f"dist_twoview_batch rank {r}: unchecked launch shapes {x['unchecked_launch_shapes']}")
+    require(len({r["digest"] for r in tv}) == 1, "dist_twoview_batch: ranks differ")
+    require(all(same), f"dist_twoview_batch: pairs {[i for i, x in enumerate(same) if not x]} "
+            "match differently from the unsharded batch")
+    require(max(gaps) <= BATCH_GAP_LIMIT_DEG,
+            f"dist_twoview_batch: rotation {max(gaps)} deg from the unsharded batch")
+
+    sq = [r["dist_sequence_10kf"] for r in ranks if "dist_sequence_10kf" in r]
+    out = sq[0]["out"]
+    ref = SEQ_10KF_REFERENCE
+    e = seq_10kf_errors(out, gt)
+    pg_gap, pose_gap = _pose_gap(out.pg_poses, seq_out.pg_poses), _pose_gap(out.poses, seq_out.poses)
+    a, c = out.ba_costs.numpy(), seq_out.ba_costs.cpu().numpy()
+    fin = (np.isfinite(a) & np.isfinite(c)) if a.shape == c.shape else np.zeros(0, bool)
+    cost_gap = float(np.abs(a - c)[fin].max() / c[0]) if fin.any() else float("inf")
+    first_gap = float(abs(a[0] - c[0]) / c[0]) if a.size and c.size else float("inf")
+    ate_limits = {"poses": seq_ate_limits(ref["ate_deg"]),
+                  "pg_poses": seq_ate_limits(ref["pg_ate_deg"])}
+    limits = (SEQ_REFERENCE_FACTOR * ref["rot_err_deg"], SEQ_REFERENCE_FACTOR * ref["t_err"])
+    ba = cost_trace(out.ba_costs)
+    log("dist_sequence_10kf", card=smi, backend="gloo", ranks=DIST_SEQ_RANKS,
+        draws="reference (jax.random.PRNGKey(SEED))", sequence_ms=[x["sequence_ms"] for x in sq],
+        stage_ms=sq[0]["stage_ms"], launches_per_rank=[x["launches"] for x in sq],
+        valid_landmarks_per_rank=[x["valid_landmarks_in_rank"] for x in sq],
+        ba_all_reduce_calls=sq[0]["ba_all_reduce_calls"],
+        ba_all_reduce_bytes=sq[0]["ba_all_reduce_bytes"],
+        peak_memory_gb_per_rank=[x["peak_memory_gb"] for x in sq],
+        ranks_bit_identical=len({x["digest"] for x in sq}) == 1,
+        pg_gap_to_mesh_none=pg_gap, pose_gap_to_mesh_none=pose_gap,
+        ba_cost_gap_to_mesh_none=cost_gap, ba_first_cost_gap_to_mesh_none=first_gap,
+        cost_gap_limit=DIST_SEQ_COST_GAP, ba_costs=ba,
+        ba_rot_err_deg=e["ba"][0], ba_t_err=e["ba"][1], limits=limits,
+        rot_ate_deg=ate_summary(e["ate"]), rot_ate_pose_graph_deg=ate_summary(e["pg_ate"]),
+        ate_limits_deg=ate_limits,
+        unchecked_launch_shapes=[x["unchecked_launch_shapes"] for x in sq])
+    for r, x in enumerate(sq):
+        require(all(c > 0 for c in x["launches"].values()),
+                f"dist_sequence_10kf rank {r}: a kernel never launched: {x['launches']}")
+        require(not any(x["unchecked_launch_shapes"].values()),
+                f"dist_sequence_10kf rank {r}: unchecked shapes {x['unchecked_launch_shapes']}")
+    require(len({x["digest"] for x in sq}) == 1, "dist_sequence_10kf: ranks differ")
+    require(ba is not None and len(ba["trace"]) == SEQ_10KF_BA_ITERS and ba["finite"]
+            and ba["falls"], f"dist_sequence_10kf: BA cost trace {ba}")
+    require(pg_gap[0] < DIST_SEQ_PG_GAP[0] and pg_gap[1] < DIST_SEQ_PG_GAP[1],
+            f"dist_sequence_10kf: pose graph {pg_gap} from the mesh=None run")
+    require(cost_gap < DIST_SEQ_COST_GAP, f"dist_sequence_10kf: BA costs {cost_gap} apart")
+    require(pose_gap[0] < DIST_SEQ_POSE_GAP[0] and pose_gap[1] < DIST_SEQ_POSE_GAP[1],
+            f"dist_sequence_10kf: poses {pose_gap} from the mesh=None run")
+    for label, errs, lim in (("poses", e["ate"], ate_limits["poses"]),
+                             ("pose-graph poses", e["pg_ate"], ate_limits["pg_poses"])):
+        require(np.median(errs) < lim[0] and errs.max() < lim[1],
+                f"dist_sequence_10kf: {label} ATE median {np.median(errs)}, max {errs.max()}")
+    require(e["ba"][0] < limits[0] and e["ba"][1] < limits[1],
+            f"dist_sequence_10kf: BA errors {e['ba']} against {limits}")
+    return ({"dist_twoview_batch": [x["launches"] for x in tv],
+             "dist_sequence_10kf": [x["launches"] for x in sq]})
 
 
 def main():
@@ -2247,19 +2645,23 @@ def main():
     for mode, c in phase_512(dev).items():
         by_phase[f"pair_512x1024_{mode}"] = (c, N_PAIRS_512)
     by_phase["pitch60_corrected"] = (phase_pitch60(dev), N_PAIRS_PITCH)
-    per_batch = {"batch_512x1024": phase_batch(dev),
+    batch_counts, batch_out = phase_batch(dev)
+    per_batch = {"batch_512x1024": batch_counts,
                  "batch_512x1024_auto": phase_batch_auto(dev),
                  "batch_512x1024_corrected": phase_batch_corrected(dev)}
     per_frontend = phase_frontends(dev)
-    phase_solvers(dev)
+    solves = phase_solvers(dev)
     per_batch["tracks_from_odometry"] = phase_tracks_all(dev)
-    per_batch.update(phase_sequence(dev, checked))
+    seq_counts, seq_out = phase_sequence(dev, checked)
+    per_batch.update(seq_counts)
+    per_rank = phase_distributed(dev, smi, checked, solves, batch_out, seq_out)
     for r, sym in zip(rows, ("sba_det_pyramid", "sba_haar_trace", "sba_top2")):
         r["launches"] = counts[sym]
         r["launches_per_pair"] = counts[sym] / N_PAIRS_2K
         r["launches_per_pair_by_phase"] = {k: c[sym] / n for k, (c, n) in by_phase.items()}
         r["launches_per_batch_by_phase"] = {k: c[sym] for k, c in per_batch.items()}
         r["launches_per_frontend_2k"] = {k: c[sym] for k, c in per_frontend.items()}
+        r["launches_per_rank_by_phase"] = {k: [c[sym] for c in cs] for k, cs in per_rank.items()}
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -28,6 +28,13 @@ Every segment sum goes through `ops/segment` with orders built once per
 solve (`ObsIndex`), so a solve gives the same bits on every run on one
 device. The camera-level aggregates are reduced in one place,
 `_camera_sums`.
+
+Sharded (parallel/dist_ba): each rank holds a block of the landmark rows
+and all the poses, and passes `group`, its landmark axis
+(parallel/mesh.Axis), where the JAX package passes `axis_name`: the
+camera-level sums are all-reduced over it (one (C, 84) tensor a GN step,
+the dense pair sum, one (C, 6) vector a CG iteration, the cost), so every
+rank solves the same camera system. `group=None` reduces nothing.
 """
 
 from __future__ import annotations
@@ -102,11 +109,15 @@ def _weights(prob):
     return (prob.obs_valid & prob.lm_valid[:, None]).to(prob.poses.dtype)
 
 
-def total_cost(prob: MultiViewProblem):
+def _all_reduce(x, group):
+    return x if group is None else group.all_reduce(x)
+
+
+def total_cost(prob: MultiViewProblem, group=None):
     poses = prob.poses[prob.obs_cam]
     res = obs_residual(poses, prob.landmarks[:, None, :].expand(prob.obs_bearing.shape),
                        prob.obs_bearing)
-    return 0.5 * torch.sum(_weights(prob)[..., None] * res * res)
+    return _all_reduce(0.5 * torch.sum(_weights(prob)[..., None] * res * res), group)
 
 
 def _per_landmark_system(prob: MultiViewProblem):
@@ -140,20 +151,23 @@ class SchurParts(NamedTuple):
     coup_diag: torch.Tensor  # (C, 6, 6) p == q coupling (S's block diagonal part)
 
 
-def _camera_sums(index: ObsIndex, Hcc_diag, gc_obs, g_pair_obs, coup_obs):
+def _camera_sums(index: ObsIndex, Hcc_diag, gc_obs, g_pair_obs, coup_obs, group=None):
     """Every camera-level aggregate of `_schur_parts`, in one segment sum
-    over the observations: S_diag, g_cam, g_pairs, coup_diag."""
+    over the observations and one all-reduce over `group`: S_diag, g_cam,
+    g_pairs, coup_diag."""
     n = gc_obs.shape[0] * gc_obs.shape[1]
     stacked = torch.cat([Hcc_diag.reshape(n, 36), gc_obs.reshape(n, 6),
                          g_pair_obs.reshape(n, 6), coup_obs.reshape(n, 36)], dim=1)
-    sums = segment.segment_sum(stacked, index.cam)
+    sums = _all_reduce(segment.segment_sum(stacked, index.cam), group)
     C = sums.shape[0]
     return (sums[:, :36].reshape(C, 6, 6), sums[:, 36:42], sums[:, 42:48],
             sums[:, 48:].reshape(C, 6, 6))
 
 
-def _schur_parts(prob: MultiViewProblem, lam, index: ObsIndex) -> SchurParts:
-    """Marginalize the landmark blocks and reduce the camera aggregates."""
+def _schur_parts(prob: MultiViewProblem, lam, index: ObsIndex, group=None) -> SchurParts:
+    """Marginalize the landmark blocks and reduce the camera aggregates
+    (sharded: the landmark fields are this rank's, the camera aggregates
+    all-reduced)."""
     res, Jc, Jl, w = _per_landmark_system(prob)
     Jcw = Jc * w[..., None, None]
     Jlw = Jl * w[..., None, None]
@@ -171,7 +185,7 @@ def _schur_parts(prob: MultiViewProblem, lam, index: ObsIndex) -> SchurParts:
     WHinv = torch.einsum("lpij,ljk->lpik", Wc, Hll_inv)
     S_diag, g_cam, g_pairs, coup_diag = _camera_sums(
         index, Hcc_diag, gc_obs, torch.einsum("lpik,lk->lpi", WHinv, gl),
-        torch.einsum("lpik,lpjk->lpij", WHinv, Wc))
+        torch.einsum("lpik,lpjk->lpij", WHinv, Wc), group)
     return SchurParts(Wc=Wc, Hll_inv=Hll_inv, WHinv=WHinv, gl=gl, S_diag=S_diag,
                       g=g_cam - g_pairs, coup_diag=coup_diag)
 
@@ -183,12 +197,15 @@ def _camera_mask(C, fix_first_pose, like):
     return mask
 
 
-def _solve_cameras_dense(parts: SchurParts, prob, lam, fix_first_pose, index: ObsIndex):
+def _solve_cameras_dense(parts: SchurParts, prob, lam, fix_first_pose, index: ObsIndex,
+                         group=None):
     """Explicit (6C, 6C) assembly + Cholesky. The (L, P, P, 6, 6) pair
-    tensor lives only in this path."""
+    tensor lives only in this path; its (C, C, 6, 6) camera-pair sum is
+    all-reduced before the diagonal part is added."""
     C = prob.poses.shape[0]
     pair = torch.einsum("lpik,lqjk->lpqij", parts.WHinv, parts.Wc)
-    S = -segment.segment_sum(pair.reshape(-1, 6, 6), index.pair).reshape(C, C, 6, 6)
+    S = -_all_reduce(segment.segment_sum(pair.reshape(-1, 6, 6), index.pair),
+                     group).reshape(C, C, 6, 6)
     ar = torch.arange(C, device=S.device)
     S[ar, ar] = S[ar, ar] + parts.S_diag
     S = S.transpose(1, 2).reshape(C * 6, C * 6)
@@ -202,9 +219,12 @@ def _solve_cameras_dense(parts: SchurParts, prob, lam, fix_first_pose, index: Ob
 
 
 def _solve_cameras_pcg(parts: SchurParts, prob, lam, fix_first_pose, cg_iters, cg_tol,
-                       index: ObsIndex):
+                       index: ObsIndex, group=None):
     """Matrix-free block-Jacobi PCG on the reduced camera system: S @ x as
-    gather -> 3x3 product -> segment sum (O(L P) work, nothing O(C^2))."""
+    gather -> 3x3 product -> segment sum (O(L P) work, nothing O(C^2)).
+    Sharded, the matvec all-reduces its segment sum, one (C, 6) vector a
+    CG iteration; every other CG quantity derives from all-reduced values,
+    so every rank reads the same stop test."""
     C = prob.poses.shape[0]
     node_mask = _camera_mask(C, fix_first_pose, parts.g)
     # the exact block diagonal of S (diagonal part minus p == q coupling);
@@ -219,7 +239,9 @@ def _solve_cameras_pcg(parts: SchurParts, prob, lam, fix_first_pose, cg_iters, c
         u = torch.einsum("lpij,lpi->lj", parts.Wc, x[prob.obs_cam])
         v = torch.einsum("lij,lj->li", parts.Hll_inv, u)
         z = torch.einsum("lpij,lj->lpi", parts.Wc, v)
-        y2 = segment.segment_sum(z.reshape(-1, 6), index.cam)
+        y2 = _all_reduce(segment.segment_sum(z.reshape(-1, 6), index.cam), group)
+        # y1 comes from the replicated S_diag: it stays outside the
+        # all-reduce, which would count it once per rank
         y = (y1 - y2 + dvec * x) * node_mask + x_flat.reshape(C, 6) * (1.0 - node_mask)
         return y.reshape(-1)
 
@@ -239,17 +261,19 @@ def gauss_newton_step(
     cg_iters: int = 100,
     cg_tol: float = 1e-5,
     index: ObsIndex | None = None,
+    group=None,
 ):
     """One damped GN step with Schur elimination of the landmarks; returns
     (new_poses, new_landmarks). `index` is the solve's ObsIndex (built
-    here when not given)."""
+    here when not given); `group` the landmark axis of a sharded solve."""
     if index is None:
         index = obs_index(prob, linear_solver)
-    parts = _schur_parts(prob, lam, index)
+    parts = _schur_parts(prob, lam, index, group)
     if linear_solver == "dense":
-        dc = _solve_cameras_dense(parts, prob, lam, fix_first_pose, index)
+        dc = _solve_cameras_dense(parts, prob, lam, fix_first_pose, index, group)
     else:
-        dc = _solve_cameras_pcg(parts, prob, lam, fix_first_pose, cg_iters, cg_tol, index)
+        dc = _solve_cameras_pcg(parts, prob, lam, fix_first_pose, cg_iters, cg_tol, index,
+                                group)
     # back-substitute: dl = -Hll_inv (gl + sum_p Wc_p^T dc_{cam_p})
     rhs = parts.gl + torch.einsum("lpij,lpi->lj", parts.Wc, dc[prob.obs_cam])
     dl = -torch.einsum("lij,lj->li", parts.Hll_inv, rhs)
@@ -265,6 +289,7 @@ def solve_multiview(
     linear_solver: str = "auto",
     cg_iters: int = 100,
     cg_tol: float = 1e-5,
+    group=None,
 ):
     """LM loop (accept / reject) over Schur GN steps; returns (solved
     problem, (num_iters,) cost trace).
@@ -273,19 +298,24 @@ def solve_multiview(
     The loop has a fixed length and decides on the device (`torch.where`),
     so it makes no host sync of its own; the PCG reads its stop test every
     `pcg.CHECK_EVERY` iterations. A step that does not lower the cost (a
-    NaN step included) is rejected."""
+    NaN step included) is rejected.
+
+    group: the landmark axis of a sharded solve (parallel/dist_ba): prob
+    holds this rank's landmark rows, the costs and camera sums are
+    all-reduced over it, and accept / reject reads only all-reduced costs,
+    so every rank takes the same steps."""
     if linear_solver == "auto":
         linear_solver = "dense" if prob.poses.shape[0] <= 32 else "pcg"
     index = obs_index(prob, linear_solver)
     poses, landmarks = prob.poses, prob.landmarks
     lam = torch.tensor(lam0, dtype=poses.dtype, device=poses.device)
-    cost0 = total_cost(prob)
+    cost0 = total_cost(prob, group)
     costs = []
     for _ in range(num_iters):
         p = prob._replace(poses=poses, landmarks=landmarks)
         new_poses, new_landmarks = gauss_newton_step(
-            p, lam, fix_first_pose, linear_solver, cg_iters, cg_tol, index)
-        cost1 = total_cost(prob._replace(poses=new_poses, landmarks=new_landmarks))
+            p, lam, fix_first_pose, linear_solver, cg_iters, cg_tol, index, group)
+        cost1 = total_cost(prob._replace(poses=new_poses, landmarks=new_landmarks), group)
         accept = cost1 < cost0
         costs.append(torch.minimum(cost0, cost1))
         poses = torch.where(accept, new_poses, poses)

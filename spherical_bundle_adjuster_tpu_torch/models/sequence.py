@@ -10,7 +10,8 @@ Stages:
   3. pose graph: chain odometry + closures with sqrt-match information
      weights, damped GN (solver.pose_graph);
   4. global refinement: cross-pair merged tracks (models.tracks) into the
-     multi-keyframe Schur BA (models.multiview).
+     multi-keyframe Schur BA (models.multiview), landmark-sharded over a
+     process mesh when one is given (parallel.dist_ba).
 
 Everything runs on the frames' device (the card for frames that are not
 a tensor). The stages make the host reads of the entry points they call,
@@ -24,6 +25,7 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
+from ..parallel import dist_ba
 from ..solver import epipolar
 from ..solver import pose_graph as pg
 from ..utils.config import PipelineConfig
@@ -140,13 +142,12 @@ def run_sequence(
     degrades the pose-graph rotations. "auto" runs the BA only when the
     median odometry |t| reaches MIN_BA_BASELINE.
 
-    mesh: the sharded global BA needs the port of parallel/dist_ba to
-    torch.distributed, which is not there yet (ROADMAP.md, queue 1);
-    anything but None raises NotImplementedError."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "run_sequence(mesh=...): the sharded global BA waits on the port of "
-            "parallel/dist_ba to torch.distributed (ROADMAP.md, queue 1)")
+    mesh: a parallel.mesh.Mesh: the global BA runs landmark-sharded over
+    its "data" axis (parallel.dist_ba.solve_multiview_sharded). Every rank
+    of the mesh calls run_sequence with the same frames and draws and runs
+    every stage before the BA itself, as every process of the JAX
+    package's would; only the BA is sharded, and every rank returns the
+    same result."""
     frames = _on_device(frames)
     n, h, w = frames.shape[0], frames.shape[1], frames.shape[2]
     dev = frames.device
@@ -187,7 +188,10 @@ def run_sequence(
         global_ba = median_baseline(tran) >= MIN_BA_BASELINE
     if global_ba:
         prob = build_multiview_problem(poses, pair_res, w, h)
-        prob, ba_costs = mv.solve_multiview(prob, num_iters=ba_iters)
+        if mesh is not None:
+            prob, ba_costs = dist_ba.solve_multiview_sharded(prob, mesh, num_iters=ba_iters)
+        else:
+            prob, ba_costs = mv.solve_multiview(prob, num_iters=ba_iters)
         poses = prob.poses
 
     return SequenceResult(

@@ -127,3 +127,27 @@ def test_chip_smoke_alone_fails(tmp_path):
                          env=env, cwd=tmp_path, timeout=120)
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+
+
+def test_distributed_layer_and_rank_workers_import_no_jax():
+    """parallel/ (mesh, dist_ba, launch) is part of the port, and it and
+    tests/torch_ranks.py, which every rank of the multi-process tests
+    imports when it is spawned, load neither jax nor the JAX package."""
+    assert {p.stem for p in (PKG / "parallel").glob("*.py")} >= {"mesh", "dist_ba", "launch"}
+    code = (
+        "import sys\n"
+        f"sys.path.insert(0, {str(ROOT / 'tests')!r})\n"
+        "import torch_ranks\n"
+        "from spherical_bundle_adjuster_tpu_torch.parallel import dist_ba, launch, mesh\n"
+        "bad = [m for m in sys.modules if m in ('jax', %r)\n"
+        "       or m.startswith(('jax.', %r))]\n" % (REFERENCE, REFERENCE + ".")
+        + "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=_env(), cwd=ROOT, timeout=120)
+    assert out.returncode == 0, out.stderr
+    for node in ast.walk(ast.parse((ROOT / "tests" / "torch_ranks.py").read_text())):
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            names = [a.name for a in node.names] if isinstance(node, ast.Import) else [node.module]
+            assert not any(n.split(".")[0] in ("jax", REFERENCE) for n in names), node.lineno

@@ -30,11 +30,13 @@ import pytest
 import torch
 
 import chip_smoke as smoke
+import torch_ranks
 from spherical_bundle_adjuster_tpu.core import rotation as jrot
 from spherical_bundle_adjuster_tpu.models import frontend as jfront
 from spherical_bundle_adjuster_tpu.models import multiview as jmv
 from spherical_bundle_adjuster_tpu.models import sequence as jseq
 from spherical_bundle_adjuster_tpu.models import twoview as jtv
+from spherical_bundle_adjuster_tpu.parallel import mesh as jmesh
 from spherical_bundle_adjuster_tpu.solver import pose_graph as jpg
 from spherical_bundle_adjuster_tpu.utils.config import (
     BaConfig, MatchConfig, PipelineConfig, SurfConfig,
@@ -42,6 +44,7 @@ from spherical_bundle_adjuster_tpu.utils.config import (
 from spherical_bundle_adjuster_tpu_torch.models import frontend as tfront
 from spherical_bundle_adjuster_tpu_torch.models import sequence as tseq
 from spherical_bundle_adjuster_tpu_torch.models import twoview as ttv
+from spherical_bundle_adjuster_tpu_torch.parallel import launch
 from spherical_bundle_adjuster_tpu_torch.solver import epipolar as tepi
 from spherical_bundle_adjuster_tpu_torch.solver import pose_graph as tpg
 from spherical_bundle_adjuster_tpu_torch.utils import config as tconfig
@@ -369,12 +372,54 @@ def test_closures_share_one_draw_set(monkeypatch):
     assert torch.equal(calls[0], odo) and all(torch.equal(row, mine) for row in calls[1])
 
 
-def test_mesh_raises_not_implemented():
-    """(f) The sharded global BA waits on the torch.distributed port:
-    mesh= raises before any work, naming that item."""
-    frames, _ = _trajectory_frames()
-    with pytest.raises(NotImplementedError, match="torch.distributed"):
-        tseq.run_sequence(torch.from_numpy(frames), torch.Generator(), mesh=object())
+def test_sequence_over_a_two_rank_mesh(translating_case):
+    """(f) run_sequence(mesh=...) on translating_case's frames and draws
+    over 2 gloo ranks spawned on the CPU (tests/torch_ranks.sequence_case):
+    every stage before the BA runs on both ranks, the BA is
+    landmark-sharded (each of its 15 GN steps all-reduces the (C, 84)
+    camera sums), and both ranks return the same bits. Against the port's
+    mesh=None run: the pose graph's poses equal, the BA cost trace within
+    1e-3 of its first cost where both are finite, the poses within 1e-3
+    rad and 2e-3 units. Measured: equal bit for bit, because the tracks
+    table keeps its 68 valid tracks among its first 512 of 1024 rows, so
+    rank 1 adds exact zeros (tests/test_torch_dist_ba.py holds sharded
+    solves whose ranks all hold landmarks). Against the JAX package's
+    run_sequence(mesh=make_mesh(2)) on the same matches and draws,
+    test_translating_sequence_with_global_ba_parity's tolerances: the pose
+    graph's poses within 1e-4 rad and 5e-4, the BA trace within 1% of the
+    first cost where both are finite, poses within 1.5e-3 rad and 3e-3
+    (measured 0.27%, 6.0e-4 rad, 1.4e-3)."""
+    frames, _, _, out_t = translating_case
+    jkey = jax.random.PRNGKey(TR_KEY)
+    gumbel = _odometry_draws(TR_CFG, jkey, TR_FRAMES - 1).numpy()
+    kw = dict(closures=TR_CLOSURES, global_ba=True)
+    outs = launch.run_ranks(torch_ranks.sequence_case, 2,
+                            args=(frames, tconfig.from_reference(TR_CFG), gumbel,
+                                  _draws(TR_CFG, jkey), kw, 240),
+                            threads=1, timeout_s=240, deadline_s=600)
+    for a, b in zip(outs[0][0], outs[1][0]):  # bit for bit, NaN costs included
+        assert a.dtype == b.dtype and a.numpy().tobytes() == b.numpy().tobytes()
+    got, traffic = outs[0]
+    assert traffic[("all_reduce", TR_FRAMES * 84 * 4)] == 15
+    assert torch.equal(got.pg_poses, out_t.pg_poses)
+    assert got.ba_costs.shape == out_t.ba_costs.shape == (15,)
+    gap, n = _finite_gap(got.ba_costs.numpy(), out_t.ba_costs.numpy())
+    assert n >= 10 and gap < 1e-3 * float(out_t.ba_costs[0]), (gap, n)
+    assert _rot_gap(got.poses[:, :3].numpy(), out_t.poses[:, :3].numpy()) < 1e-3
+    np.testing.assert_allclose(got.poses[:, 3:].numpy(), out_t.poses[:, 3:].numpy(), atol=2e-3)
+
+    with reference_on_port_matches():
+        out_j = jseq.run_sequence(jnp.asarray(frames), jkey, TR_CFG, mesh=jmesh.make_mesh(2), **kw)
+        out_j = jseq.SequenceResult(*(np.asarray(f) for f in out_j))
+    assert _rot_gap(got.pg_poses[:, :3].numpy(), out_j.pg_poses[:, :3]) < 1e-4
+    np.testing.assert_allclose(got.pg_poses[:, 3:].numpy(), out_j.pg_poses[:, 3:], atol=5e-4)
+    assert out_j.ba_costs.shape == (15,)
+    gap, n = _finite_gap(got.ba_costs.numpy(), out_j.ba_costs)
+    assert n >= 10 and gap < 1e-2 * float(out_j.ba_costs[0]), (gap, n)
+    for costs in (got.ba_costs.numpy(), out_j.ba_costs):
+        assert np.isfinite(costs[-1]) and costs[-1] < costs[0], costs
+    assert _rot_gap(got.poses[:, :3].numpy(), out_j.poses[:, :3]) < 1.5e-3
+    np.testing.assert_allclose(got.poses[:, 3:].numpy(), out_j.poses[:, 3:], atol=3e-3)
 
 
 @pytest.mark.parametrize("seed", [0, smoke.SEED, 123456789])
