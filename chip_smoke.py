@@ -13,11 +13,13 @@ Phases, each printing its own line:
      tolerance, at the slice's shapes (the 8 bands of one 1024x2048 pair;
      2048 x 2048 x 64 descriptor banks; for K3 also exact ties planted
      across its lanes and blocks, a ragged 1000 x 2100 bank, an
-     all-invalid bank and the 64-pair batch), with times for each kernel,
+     all-invalid bank, the 64-pair batch and the 2K dense ladder's 4096 x
+     4096 banks), with times for each kernel,
      its plain version and, for K3, one library call (cdist + topk), and
      each kernel's bound (bytes or fp32 operations over the H100's
      peaks); K1 and K2 also at every band count that the 512x1024 phases
-     launch (BAND_LAUNCHES), the 2K ERP images and the 2K cube strips, and
+     launch (BAND_LAUNCHES), the 2K dense ladder's 16 bands, the 2K ERP
+     images and the 2K cube strips, and
      K1 / K2 and K3 at every shape that phase 13 can launch
      (sequence_launch_shapes: passes of 1 to 16 pairs on each run's
      ladders, bands of 64 x 512 and 128 x 1024, banks of 256, 512 and 1024
@@ -119,6 +121,29 @@ Phases, each printing its own line:
      collective_bytes_per_gn_iter, whether the ranks ended bit-identical,
      peak memory per rank and the backend, beside the card's name and
      power limit. Any rank's failure or timeout fails the script.
+ 15. entry_point: cli_2k, phase 3's pair 0 written as PNGs through
+     utils/io and run through cli.main (the reference's main.cpp parity
+     CLI: default auto ladder, --max-matches 1024 --ratio-thresh 0.5) in
+     this process with the launch counts set to 0 first, gated on K1 / K2
+     / K3 launched at shapes phase 2 checked, the 2K compat rotation and
+     match gates, the printed pose bit-identical to run_two_view on the
+     PNGs read back, the five files (log.txt one 10-field row, log_d.txt a
+     row a match, metrics.jsonl's two_view_ba event, two 1024x2048 PNGs),
+     then once as a subprocess (`python -m ...cli`, same log.txt row);
+     checkpoint_1024kf, phase 11's 1024-keyframe problem through
+     utils/checkpoint.solve_multiview_resumable in 4 rounds of 2
+     iterations, interrupted after 2 and resumed, bit-identical to an
+     uninterrupted call (poses, landmarks, costs), the cost trace finite
+     and falling, with the checkpoint's bytes, save / load ms and the
+     errors beside phase 11's; profile_trace, one CLI run under
+     utils/profiling.trace, whose Chrome trace must hold both
+     tile_kernel ops and top2_kernel, and profiling.device_time of K3 at
+     the 2K banks within 25% of phase 2's time (the same event timer) and
+     of K3's median kernel duration over 16 calls traced after the CLI
+     run (CUPTI's clock); native_oracle, the float64
+     oracle of utils/native against the port's epipolar / lm on card
+     tensors at tests/test_native.py's bounds where the host library
+     builds (else the reason is logged).
 
 Each pipeline phase sets the kernels' launch counts to 0 before its
 measured runs and fails if a kernel of the path was not launched.
@@ -132,9 +157,12 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import datetime
+import io as io_lib
 import json
+import logging
 import math
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -146,7 +174,8 @@ import torch
 from torch.autograd import DeviceType
 from torch.overrides import TorchFunctionMode
 
-from spherical_bundle_adjuster_tpu_torch import kernel_times
+from spherical_bundle_adjuster_tpu_torch import cli, kernel_times
+from spherical_bundle_adjuster_tpu_torch.core import rotation
 from spherical_bundle_adjuster_tpu_torch.models import (
     evaluation, frontend, multiview, sequence, tracks, twoview,
 )
@@ -155,11 +184,13 @@ from spherical_bundle_adjuster_tpu_torch.ops import (
 )
 from spherical_bundle_adjuster_tpu_torch.parallel import dist_ba, launch
 from spherical_bundle_adjuster_tpu_torch.parallel import mesh as mesh_lib
-from spherical_bundle_adjuster_tpu_torch.solver import epipolar, pose_graph
+from spherical_bundle_adjuster_tpu_torch.solver import epipolar, lm, pose_graph
 from spherical_bundle_adjuster_tpu_torch.solver import pcg as pcg_mod
-from spherical_bundle_adjuster_tpu_torch.utils import synthetic
+from spherical_bundle_adjuster_tpu_torch.utils import checkpoint, native, profiling, synthetic
+from spherical_bundle_adjuster_tpu_torch.utils import io as image_io
+from spherical_bundle_adjuster_tpu_torch.utils import logging as port_logging
 from spherical_bundle_adjuster_tpu_torch.utils.config import (
-    DENSE_BAND_PITCHES, FrontendConfig, MatchConfig, PipelineConfig, SurfConfig,
+    DENSE_BAND_PITCHES, BaConfig, FrontendConfig, MatchConfig, PipelineConfig, SurfConfig,
 )
 
 # The bench's configs (bench.py bench_config_2k / bench_config) and its 2K
@@ -347,6 +378,58 @@ def max_abs_err(got, want):
     return (got[fin] - want[fin]).abs().max().item() if bool(fin.any()) else 0.0
 
 
+# Worst-case rounding of one fp32 d2 = |q|^2 + |t|^2 - 2 q.t of unit 64-d
+# descriptors: 64 products in each sum, |q|^2 + |t|^2 + 2|q.t| <= 4.
+K3_TIE_D2 = 4 * 64 * 2.0**-24
+
+
+def k3_splits(q, t, v, idx, pidx):
+    """Every query whose K3 indices differ from the plain version's
+    (banks with or without a leading pair axis), with the squared
+    distances at both index pairs: as the plain version rounds them (its
+    query chunk recomputed) and exact (float64, +inf at an invalid slot),
+    and `gap`, the largest difference of exact d2 between the two picks
+    of one rank. K3 sums the 64 products in order with fmaf and the plain
+    version through a matmul, so a query whose exact d2 of two train rows
+    lie within K3_TIE_D2 may be split either way."""
+    if q.ndim == 2:
+        q, t, v, idx, pidx = q[None], t[None], v[None], idx[None], pidx[None]
+    out = []
+    for p, i in (idx != pidx).any(-1).nonzero().tolist():
+        picks = {"kernel": idx[p, i].long(), "plain": pidx[p, i].long()}
+        tf = t[p].float()
+        i0 = i - i % cuda_match._CHUNK
+        qc = q[p, i0:i0 + cuda_match._CHUNK].float()
+        row = torch.clamp((qc * qc).sum(-1, keepdim=True) + (tf * tf).sum(-1)
+                          - 2.0 * (qc @ tf.T), min=0.0)[i - i0]
+        exact = ((q[p, i].double() - t[p].double()) ** 2).sum(-1)
+        exact = torch.where(v[p], exact, torch.inf)
+        rec = dict(pair=p, query=i)
+        for who, j in picks.items():
+            rec[f"{who}_idx"] = j.tolist()
+            rec[f"{who}_plain_d2"] = row[j].tolist()
+            rec[f"{who}_exact_d2"] = exact[j].tolist()
+        rec["gap"] = (exact[picks["kernel"]] - exact[picks["plain"]]).abs().max().item()
+        out.append(rec)
+    return out
+
+
+def k3_agrees(name, q, t, v, dist, idx):
+    """K3's (dist, idx) against the plain version on the same banks:
+    distances within 2e-3, indices identical but where k3_splits finds a
+    split within K3_TIE_D2 (each split logged). Returns (max_abs_err,
+    number of splits)."""
+    pdist, pidx = cuda_match.top2_distances_plain(q, t, v)
+    err = max_abs_err(dist, pdist)
+    require(err <= 2e-3, f"K3 {name}: distances differ by {err}")
+    splits = k3_splits(q, t, v, idx, pidx)
+    for s in splits:
+        log("k3_split", bank=name, tie_d2=K3_TIE_D2, **s)
+    require(all(s["gap"] <= K3_TIE_D2 for s in splits),
+            f"K3 {name}: indices differ beyond a rounding tie: {splits}")
+    return err, len(splits)
+
+
 def phase_kernels(dev):
     """Each kernel against its plain version at the slice's shapes."""
     left, right, _ = make_pair(0, *SIZE_2K, dev)
@@ -419,12 +502,17 @@ def phase_kernels(dev):
                                  CFG_512.frontend.band_pitches_deg).flatten(0, 1)
     del lefts, rights, batch_pairs
     launches = [(f"{n} bands of 128 x 1024", bands5[:n], CFG_512.surf) for n in BAND_LAUNCHES]
+    # the 2K pair's dense ladder: phase 15's CLI runs the default auto
+    # ladder, which re-runs a pair short of matches on it
     launches += [
+        ("2K dense ladder's 16 bands of 256 x 2048",
+         frontend.crop_bands(left[None], right[None], CFG_2K, DENSE_BAND_PITCHES)[0], scfg),
         ("2K ERP images", integral.rgb_to_gray(torch.stack([left, right])), scfg),
         ("2K cube strips", torch.stack([warp.equi_to_cubemap(integral.rgb_to_gray(im), CUBE_2K)
                                         for im in (left, right)]), scfg)]
     shapes = []
     checked = dict(surf=set(), top2=set())  # what this phase held against plain
+    checked["surf"].add(surf_key(ii, scfg))  # the 8 bands above
 
     def k1_k2_case(name, images, surf_cfg):
         iib = integral.integral_image(images)
@@ -466,15 +554,14 @@ def phase_kernels(dev):
     d2 = torch.nn.functional.normalize(torch.randn(2048, 64, device=dev, generator=g), dim=-1)
     v2 = torch.rand(2048, device=dev, generator=g) > 0.1
 
+    splits = {}
+
     def k3_case(name, q, t, v):
-        """K3 against its plain version: identical indices, distances
-        within 2e-3; returns (dist, idx, max_abs_err)."""
+        """K3 against its plain version (k3_agrees); returns (dist, idx,
+        max_abs_err)."""
         dist, idx = cuda_match.top2_distances_cuda(q, t, v)
         torch.cuda.synchronize()
-        pdist, pidx = cuda_match.top2_distances_plain(q, t, v)
-        require(torch.equal(idx, pidx), f"K3 {name}: indices differ")
-        err = max_abs_err(dist, pdist)
-        require(err <= 2e-3, f"K3 {name}: distances differ by {err}")
+        err, splits[name] = k3_agrees(name, q, t, v, dist, idx)
         return dist, idx, err
 
     dist, idx, err = k3_case("2048 x 2048", d1, d2, v2)
@@ -507,17 +594,21 @@ def phase_kernels(dev):
     bv = torch.rand(N_BATCH, 1024, device=dev, generator=g) > 0.1
     bdist, bidx = cuda_match.top2_distances_cuda(bq, bt, bv)
     torch.cuda.synchronize()
-    pdist, pidx = cuda_match.top2_distances_plain(bq, bt, bv)
-    require(torch.equal(bidx, pidx), "batched K3: indices differ from the plain version")
-    berr = max_abs_err(bdist, pdist)
-    require(berr <= 2e-3, f"batched K3: distances differ by {berr}")
+    berr, splits["batched"] = k3_agrees("batched", bq, bt, bv, bdist, bidx)
     for p in range(N_BATCH):
         one_d, one_i = cuda_match.top2_distances_cuda(bq[p], bt[p], bv[p])
         require(torch.equal(one_d, bdist[p]) and torch.equal(one_i, bidx[p]),
                 f"batched K3: pair {p} differs from its own launch")
 
+    # the 2K dense ladder's banks (8 bands x 512 keypoints a side)
+    dq = torch.nn.functional.normalize(torch.randn(4096, 64, device=dev, generator=g), dim=-1)
+    dt = torch.nn.functional.normalize(torch.randn(4096, 64, device=dev, generator=g), dim=-1)
+    k3_case("4096 x 4096", dq, dt, torch.rand(4096, device=dev, generator=g) > 0.1)
+    del dq, dt
+
     # the banks above, and each pair of the batch launched alone
-    checked["top2"] |= {(1, 2048, 2048), (1, 1000, 2100), (N_BATCH, 1024, 1024), (1, 1024, 1024)}
+    checked["top2"] |= {(1, 2048, 2048), (1, 1000, 2100), (N_BATCH, 1024, 1024), (1, 1024, 1024),
+                        (1, 4096, 4096)}
 
     # K3 at every bank that phase 13 can launch: P = 1..16 pairs of k x k
     # banks, each P the first P pairs of one 16-pair draw
@@ -525,15 +616,12 @@ def phase_kernels(dev):
         sq = torch.nn.functional.normalize(torch.randn(16, k, 64, device=dev, generator=g), dim=-1)
         st = torch.nn.functional.normalize(torch.randn(16, k, 64, device=dev, generator=g), dim=-1)
         sv = torch.rand(16, k, device=dev, generator=g) > 0.1
-        pd, pi = cuda_match.top2_distances_plain(sq, st, sv)
         for p in sorted(b[0] for b in seq_banks if b[1] == k):
-            d, i = cuda_match.top2_distances_cuda(sq[:p], st[:p], sv[:p])
-            torch.cuda.synchronize()
-            require(torch.equal(i, pi[:p]), f"K3 at ({p}, {k}, {k}): indices differ")
-            require(max_abs_err(d, pd[:p]) <= 2e-3, f"K3 at ({p}, {k}, {k}): distances differ")
+            k3_case(f"({p}, {k}, {k})", sq[:p], st[:p], sv[:p])
             checked["top2"].add((p, k, k))
-        del sq, st, sv, pd, pi
-    log("kernel_banks_sequence", k3_within_tolerance=sorted(checked["top2"]))
+        del sq, st, sv
+    log("kernel_banks_sequence", k3_within_tolerance=sorted(checked["top2"]),
+        k3_index_splits={n: c for n, c in splits.items() if c}, k3_tie_d2=K3_TIE_D2)
 
     def library_batched():
         return torch.topk(torch.cdist(bq, bt).masked_fill_(~bv[:, None, :], torch.inf), 2,
@@ -547,7 +635,7 @@ def phase_kernels(dev):
         library_ms=time_ms(library_batched),
         **bound(nbytes(bq, bt, bv, bdist, bidx), 2 * N_BATCH * 1024 * 1024 * 64),
     )
-    del bq, bt, bv, pdist, pidx
+    del bq, bt, bv
 
     rows.append(dict(
         name="top2_distances", route="cuda", source="spherical_bundle_adjuster_tpu_torch/csrc/match_top2.cu",
@@ -557,8 +645,11 @@ def phase_kernels(dev):
         plain_ms=time_ms(lambda: cuda_match.top2_distances_plain(d1, d2, v2)),
         **bound(nbytes(d1, d2, v2, dist, idx), 2 * d1.shape[0] * d2.shape[0] * d1.shape[1]),
         library_ms=time_ms(library_top2), library="torch.cdist + torch.topk(2, largest=False)",
-        tolerance="identical indices; distance atol 2e-3 (2048 x 2048, planted ties, "
-                  "1000 x 2100, the 64-pair batch); all-invalid gives (inf, index 0)",
+        tolerance="identical indices but at rounding ties (exact d2 of both picks within "
+                  "K3_TIE_D2); distance atol 2e-3 (2048 x 2048, planted ties, 1000 x 2100, the "
+                  "64-pair batch, 4096 x 4096, the sequence banks); all-invalid gives (inf, "
+                  "index 0)",
+        index_splits=sum(splits.values()),
         batched=batched,
     ))
     for r in rows:
@@ -2636,6 +2727,312 @@ def phase_distributed(dev, smi, checked, solves, batch_out, seq_out):
              "dist_sequence_10kf": [x["launches"] for x in sq]})
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the reference's own entry point (cli.main, the main.cpp parity
+# CLI) on a 2K pair, the checkpointed multiview solve, a profiler trace
+# and the native oracle.
+
+# cli_2k's flags after the nine positionals: the 2K bench config's match
+# capacity and ratio test; everything else is the CLI's default (the auto
+# band ladder, 512 keypoints a band, compat BA)
+CLI_FLAGS = ("--max-matches", "1024", "--ratio-thresh", "0.5")
+CKPT_PHASE = "multiview_pcg_1024kf"
+CKPT_ITERS_PER_ROUND = 2
+CKPT_INTERRUPT_ITERS = 4  # the interrupted call: 2 of the 4 rounds
+CKPT_TOTAL_ITERS = 8
+PROFILE_K3_TOLERANCE = 0.25  # device_time of K3 against phase 2's time and the trace's
+# K3 calls traced after the CLI run, timed on CUPTI's clock: a trace of
+# these calls alone lost its first kernels on the H100 (kept 14 and 1 of 16)
+PROFILE_K3_CALLS = 16
+# tests/test_native.py's inputs and bounds
+ORACLE_EULER = (0.08, -0.12, 0.2)
+ORACLE_T = (0.2, 0.1, -0.05)
+ORACLE_ATOL = dict(euler=5e-3, t_axis=1e-3, rot=2e-2, tran=3e-2)
+REPO = os.path.dirname(os.path.abspath(__file__))
+
+
+def cli_argv(left, right, euler_deg, out_dir):
+    return [left, right, *(repr(float(v)) for v in euler_deg), "0", "0", "0", "1", *CLI_FLAGS,
+            "--out-dir", out_dir]
+
+
+def printed(stdout, prefix):
+    """The words after `prefix` on the CLI's line that starts with it."""
+    lines = [ln for ln in stdout.splitlines() if ln.startswith(prefix)]
+    require(len(lines) == 1, f"the CLI printed {len(lines)} lines starting {prefix!r}")
+    return lines[0][len(prefix):].split()
+
+
+class LogLines(logging.Handler):
+    """Collects the messages of a logger while installed."""
+
+    def __init__(self, logger):
+        super().__init__()
+        self.messages, self.logger = [], logger
+
+    def __enter__(self):
+        self.logger.addHandler(self)
+        return self.messages
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self)
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
+def run_cli(argv):
+    """cli.main(argv) in this process: (rc, stdout, log messages)."""
+    buf = io_lib.StringIO()
+    with LogLines(port_logging.logger) as messages, contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    return rc, buf.getvalue(), messages
+
+
+def phase_cli_2k(dev, smi, checked, tmp):
+    """cli_2k: phase 3's pair 0 as PNGs through the port's CLI, in this
+    process with the launch counts set to 0 first, then once as a
+    subprocess; returns (launch counts, the CLI's argv)."""
+    left, right, R = make_pair(0, *SIZE_2K, dev)
+    euler = np.random.default_rng(SEED).uniform(-5, 5, (N_DISTINCT, 3))[0]
+    paths = [os.path.join(tmp, "left.png"), os.path.join(tmp, "right.png")]
+    image_io.save_image(left, paths[0])
+    image_io.save_image(right, paths[1])
+    out_dir = os.path.join(tmp, "match_result")
+    argv = cli_argv(*paths, euler, out_dir)
+    with recorded_launch_shapes() as shapes:
+        (rc, stdout, messages), counts = counted(lambda: run_cli(argv))
+    require(rc == 0, f"cli.main returned {rc}")
+    rot_deg, tran = printed(stdout, "rotation vector in degree "), printed(stdout, "translation vector ")
+    matches = int(printed(stdout, "matches: ")[0])
+    err = rot_err_deg_host(np.deg2rad(np.array(rot_deg, np.float64)), R)
+    ba_s = [float(m.split(":")[1].split()[0]) for m in messages
+            if m.startswith("bundle_adjustment execution time")]
+
+    # the same pair, config and seed through run_two_view in this process
+    args = cli.build_parser().parse_args(argv)
+    images = [torch.tensor(image_io.load_image(p), device=dev) for p in paths]
+    require(all(torch.equal(a, b) for a, b in zip(images, (left, right))),
+            "the PNGs do not read back as the rendered pair")
+    ref = twoview.run_two_view(*images, torch.Generator(dev).manual_seed(args.seed),
+                               cli.build_config(args), args.frontend)
+    want = ([str(v) for v in ref.rotation_deg.cpu().numpy().tolist()],
+            [str(v) for v in ref.translation.cpu().numpy().tolist()])
+
+    files = sorted(os.listdir(out_dir))
+    rows = open(os.path.join(out_dir, "log.txt")).read().splitlines()
+    depth_rows = open(os.path.join(out_dir, "log_d.txt")).read().splitlines()
+    events = [json.loads(ln)["event"] for ln in open(os.path.join(out_dir, "metrics.jsonl"))]
+    pngs = [f for f in files if f.endswith(".png")]
+    png_shapes = {f: list(image_io.load_image(os.path.join(out_dir, f)).shape) for f in pngs}
+
+    sub_dir = os.path.join(tmp, "match_result_subprocess")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "spherical_bundle_adjuster_tpu_torch.cli",
+         *cli_argv(*paths, euler, sub_dir)], capture_output=True, text=True, cwd=REPO,
+        env=dict(os.environ, PYTHONPATH=REPO), timeout=600)
+    sub_s = time.perf_counter() - t0
+    sub_rows = (open(os.path.join(sub_dir, "log.txt")).read().splitlines()
+                if proc.returncode == 0 else None)
+    unchecked = unchecked_shapes(shapes, checked)
+    log("cli_2k", card=smi, argv_flags=list(CLI_FLAGS), euler_deg=euler.tolist(), launches=counts,
+        launch_shapes={k: sorted(v) for k, v in shapes.items()}, unchecked_launch_shapes=unchecked,
+        dense_rerun=any(k[0] == 2 * len(DENSE_BAND_PITCHES) for k in shapes["surf"]),
+        rotation_deg=rot_deg, translation=tran, matches=matches, rot_err_deg=err,
+        gates=dict(med_rot_err_deg=GATE_MED_ROT_ERR_DEG, min_matches=GATE_MIN_MATCHES),
+        pose_equals_run_two_view=(rot_deg, tran) == want, bundle_adjustment_s=ba_s,
+        codec="native" if native.available() else "PIL",
+        native_unavailable=native.unavailable_reason(), files=files, png_shapes=png_shapes,
+        log_rows=len(rows), log_fields=len(rows[0].split(",")) if rows else 0,
+        log_d_rows=len(depth_rows), metric_events=events, subprocess_rc=proc.returncode,
+        subprocess_s=sub_s, subprocess_row_equal=sub_rows == rows)
+    require(all(c > 0 for c in counts.values()), f"cli_2k: a kernel never launched: {counts}")
+    require(not any(unchecked.values()), f"cli_2k: launch shapes phase 2 did not check: {unchecked}")
+    require(err <= GATE_MED_ROT_ERR_DEG, f"cli_2k: rotation {err} deg off")
+    require(matches >= GATE_MIN_MATCHES, f"cli_2k: {matches} matches")
+    require((rot_deg, tran) == want, f"cli_2k: printed pose {rot_deg, tran} is not run_two_view's "
+            f"{want}")
+    require(len(rows) == 1 and len(rows[0].split(",")) == 10, f"cli_2k: log.txt {rows}")
+    require(len(depth_rows) == matches, f"cli_2k: {len(depth_rows)} depth rows, {matches} matches")
+    require(events == ["two_view_ba"], f"cli_2k: metrics events {events}")
+    require(len(pngs) == 2 and "d_found.png" in pngs
+            and all(v == [*SIZE_2K, 3] for v in png_shapes.values()), f"cli_2k: PNGs {png_shapes}")
+    require(proc.returncode == 0, f"cli_2k: the CLI as a subprocess exited {proc.returncode}: "
+            f"{proc.stderr[-2000:]}")
+    require(sub_rows == rows, f"cli_2k: the subprocess wrote {sub_rows}, in-process {rows}")
+    return counts, argv
+
+
+def phase_checkpoint(dev, smi, solves):
+    """checkpoint_1024kf: phase 11's 1024-keyframe problem in checkpointed
+    rounds, interrupted after 2 rounds and resumed, against one
+    uninterrupted call into another path."""
+    name, C, L, P, noise, seed, kw = _multiview_phase(CKPT_PHASE)
+    ref = solves[name]
+    prob = multiview.problem_from_numpy(ref["fields"], dev)
+    timings = dict(save_ms=[], load_ms=[])
+    save, load = checkpoint.save_checkpoint, checkpoint.load_checkpoint
+
+    def timed_call(fn, key):
+        def call(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            timings[key].append(1e3 * (time.perf_counter() - t0))
+            return out
+        return call
+
+    checkpoint.save_checkpoint = timed_call(save, "save_ms")
+    checkpoint.load_checkpoint = timed_call(load, "load_ms")
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            a, b = os.path.join(tmp, "interrupted"), os.path.join(tmp, "whole")
+            t0 = time.perf_counter()
+            _, first = checkpoint.solve_multiview_resumable(
+                prob, a, total_iters=CKPT_INTERRUPT_ITERS, iters_per_round=CKPT_ITERS_PER_ROUND)
+            resumed, rest = checkpoint.solve_multiview_resumable(
+                prob, a, total_iters=CKPT_TOTAL_ITERS, iters_per_round=CKPT_ITERS_PER_ROUND)
+            torch.cuda.synchronize()
+            interrupted_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            whole, costs = checkpoint.solve_multiview_resumable(
+                prob, b, total_iters=CKPT_TOTAL_ITERS, iters_per_round=CKPT_ITERS_PER_ROUND)
+            torch.cuda.synchronize()
+            whole_s = time.perf_counter() - t0
+            n_bytes = os.path.getsize(b + ".npz")
+    finally:
+        checkpoint.save_checkpoint, checkpoint.load_checkpoint = save, load
+    same = dict(poses=torch.equal(resumed.poses, whole.poses),
+                landmarks=torch.equal(resumed.landmarks, whole.landmarks),
+                costs=torch.equal(torch.cat([first, rest]), costs))
+    trace = cost_trace(costs)
+    c0 = float(multiview.total_cost(prob))
+    vals, fails = solver_gates("multiview_pcg", c0, costs.cpu().numpy(),
+                               whole.poses.cpu().numpy(), ref["poses_gt"])
+    ang11, t11 = pose_errors(ref["solved"].poses.cpu().numpy(), ref["poses_gt"])
+    log("checkpoint_1024kf", card=smi, cameras=C, landmarks=L, obs_per_landmark=P,
+        rounds=CKPT_TOTAL_ITERS // CKPT_ITERS_PER_ROUND, iters_per_round=CKPT_ITERS_PER_ROUND,
+        interrupted_after_rounds=CKPT_INTERRUPT_ITERS // CKPT_ITERS_PER_ROUND,
+        bit_identical=same, checkpoint_bytes=n_bytes, save_ms=timings["save_ms"],
+        load_ms=timings["load_ms"], interrupted_and_resumed_s=interrupted_s,
+        uninterrupted_s=whole_s, costs=trace, final=vals, phase11_gates_failed=fails,
+        phase11=dict(solve_kwargs=kw, median_rot_err_deg=float(np.median(ang11)),
+                     max_rot_err_deg=float(ang11.max()), median_t_err=float(np.median(t11)),
+                     max_t_err=float(t11.max())))
+    require(all(same.values()), f"checkpoint_1024kf: resumed differs from uninterrupted: {same}")
+    require(trace is not None and trace["finite"] and trace["falls"],
+            f"checkpoint_1024kf: cost trace {trace}")
+    require(len(timings["save_ms"]) == 2 * CKPT_TOTAL_ITERS // CKPT_ITERS_PER_ROUND
+            and len(timings["load_ms"]) == 1, f"checkpoint_1024kf: {timings}")
+
+
+def phase_profile(dev, smi, argv, k3_ms, tmp):
+    """profile_trace: one CLI run (cli_2k's argv) under profiling.trace,
+    whose Chrome trace must hold K1's, K2's and K3's kernels; K3 timed by
+    profiling.device_time at the 2K banks against phase 2's time (the same
+    CUDA-event timer, kernel_times.device_ms, so this holds it to its own
+    repeatability) and against the median duration of K3's kernel over
+    PROFILE_K3_CALLS calls at those banks traced after the CLI run (CUPTI's
+    clock, independent of the events)."""
+    g = torch.Generator(dev).manual_seed(SEED)
+    d1 = torch.nn.functional.normalize(torch.randn(2048, 64, device=dev, generator=g), dim=-1)
+    d2 = torch.nn.functional.normalize(torch.randn(2048, 64, device=dev, generator=g), dim=-1)
+    v2 = torch.rand(2048, device=dev, generator=g) > 0.1
+    k3 = lambda: cuda_match.top2_distances_cuda(d1, d2, v2)
+    k3_s = profiling.device_time(k3)
+    gap = abs(1e3 * k3_s - k3_ms) / k3_ms
+    log_dir = os.path.join(tmp, "trace")
+    out_dir = os.path.join(tmp, "match_result_traced")
+    with profiling.trace(log_dir):
+        rc, _, _ = run_cli(argv[:-1] + [out_dir])
+        for _ in range(PROFILE_K3_CALLS):
+            k3()
+    require(rc == 0, f"profile_trace: cli.main returned {rc}")
+    files = sorted(os.listdir(log_dir))
+    require(len(files) == 1, f"profile_trace: {files} in the trace directory")
+    path = os.path.join(log_dir, files[0])
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    names = [e["name"] for e in kernels]
+    top2 = sorted((e for e in kernels if "top2_kernel" in e["name"]), key=lambda e: e["ts"])
+    found = {"tile_kernel<DetOp>": sum("tile_kernel" in k and "DetOp" in k for k in names),
+             "tile_kernel<HaarOp>": sum("tile_kernel" in k and "HaarOp" in k for k in names),
+             "top2_kernel": len(top2)}
+    durs = [e["dur"] for e in top2[-PROFILE_K3_CALLS:]]
+    cupti_ms = statistics.median(durs) / 1e3 if durs else None
+    cupti_gap = abs(1e3 * k3_s - cupti_ms) / cupti_ms if durs else None
+    log("profile_trace", card=smi, trace_bytes=os.path.getsize(path), events=len(events),
+        device_kernels=len(kernels), kernels_found=found, cupti=bool(kernels),
+        k3_calls_after_the_cli=PROFILE_K3_CALLS, k3_device_time_ms=1e3 * k3_s,
+        k3_phase2_ms=k3_ms, k3_gap=gap, k3_cupti_ms=cupti_ms, k3_cupti_gap=cupti_gap,
+        k3_tolerance=PROFILE_K3_TOLERANCE)
+    if kernels:
+        require(all(found.values()), f"profile_trace: kernels missing from the trace: {found}")
+        require(len(top2) > PROFILE_K3_CALLS,
+                f"profile_trace: {len(top2)} K3 kernels in the trace, fewer than the CLI's and "
+                f"the {PROFILE_K3_CALLS} calls after it")
+        require(cupti_gap <= PROFILE_K3_TOLERANCE, f"profile_trace: device_time {1e3 * k3_s} "
+                f"ms against the trace's {cupti_ms} ms")
+    require(gap <= PROFILE_K3_TOLERANCE, f"profile_trace: device_time {1e3 * k3_s} ms against "
+            f"phase 2's {k3_ms} ms")
+
+
+def phase_native_oracle(dev, smi):
+    """native_oracle: the float64 oracle (utils/native) against the port's
+    epipolar and lm stages on card tensors, at tests/test_native.py's
+    inputs and bounds, where the host library builds."""
+    if not native.available():
+        log("native_oracle", card=smi, available=False, reason=native.unavailable_reason(),
+            note="the host lacks what csrc/sba_native.cpp needs; image IO reads through PIL")
+        return
+    rng = np.random.default_rng(0)
+    n = 64
+    b1 = rng.normal(size=(n, 3))
+    b1 /= np.linalg.norm(b1, axis=-1, keepdims=True)
+    d1 = rng.uniform(2, 6, n)
+    R = rotation.euler_to_matrix(torch.tensor(ORACLE_EULER, dtype=torch.float32)).numpy()
+    x2 = (R.astype(np.float64) @ (b1 * d1[:, None]).T).T - np.asarray(ORACLE_T)
+    d2 = np.linalg.norm(x2, axis=-1)
+    b2 = x2 / d2[:, None]
+    f32 = lambda a: torch.tensor(np.asarray(a), dtype=torch.float32, device=dev)
+    E = epipolar.essential_from_bearings(f32(b1), f32(b2), torch.ones(n, device=dev))
+    r1, r2, tt = epipolar.decompose_essential(E)
+    e_port = torch.stack([rotation.matrix_to_euler(r1), rotation.matrix_to_euler(r2)]).cpu().numpy()
+    e1, e2, t_o, v1, v2 = native.oracle_eight_point(b1, b2)
+    euler_err = [float(np.linalg.norm(e_port - e, axis=-1).min()) for e, v in ((e1, v1), (e2, v2))
+                 if v]
+    t_axis_err = abs(abs(float(np.dot(tt.cpu().numpy(), t_o))) - 1.0)
+    aa = rotation.matrix_to_angle_axis(torch.tensor(R)).numpy().astype(np.float64)
+    rot0, tran0, d0 = aa + 0.02, np.asarray(ORACLE_T) + 0.02, np.stack([d1, d2], -1) + 0.2
+    rot_o, tran_o, _ = native.oracle_bcd(b1, b2, rot0, tran0, d0, iters=50, compat=False)
+    cfg = BaConfig(reference_compat=False)
+    valid = torch.ones(n, dtype=torch.bool, device=dev)
+    d_p, _ = lm.solve_depths(f32(b1), f32(b2), f32(d0), f32(rot0), f32(tran0), valid, cfg)
+    rot_p, _ = lm.solve_rotation(f32(b1), f32(b2), d_p, f32(rot0), f32(tran0), valid, cfg)
+    tran_p, _ = lm.solve_translation(f32(b1), f32(b2), d_p, rot_p, f32(tran0), valid, cfg)
+    rot_err = float(np.abs(rot_p.cpu().numpy() - rot_o).max())
+    tran_err = float(np.abs(tran_p.cpu().numpy() - tran_o).max())
+    log("native_oracle", card=smi, available=True, euler_err=euler_err, t_axis_err=t_axis_err,
+        bcd_rot_err=rot_err, bcd_tran_err=tran_err, atol=ORACLE_ATOL)
+    require(euler_err and max(euler_err) < ORACLE_ATOL["euler"], f"native_oracle: Euler {euler_err}")
+    require(t_axis_err < ORACLE_ATOL["t_axis"], f"native_oracle: t axis {t_axis_err}")
+    require(rot_err < ORACLE_ATOL["rot"] and tran_err < ORACLE_ATOL["tran"],
+            f"native_oracle: BCD {rot_err}, {tran_err}")
+
+
+def phase_entry_point(dev, smi, checked, solves, k3_ms):
+    """Phase 15; returns cli_2k's launch counts."""
+    with tempfile.TemporaryDirectory() as tmp:
+        counts, argv = phase_cli_2k(dev, smi, checked, tmp)
+        phase_checkpoint(dev, smi, solves)
+        phase_profile(dev, smi, argv, k3_ms, tmp)
+    phase_native_oracle(dev, smi)
+    return counts
+
+
 def main():
     dev, smi = phase_device()
     phase_build()
@@ -2655,6 +3052,7 @@ def main():
     seq_counts, seq_out = phase_sequence(dev, checked)
     per_batch.update(seq_counts)
     per_rank = phase_distributed(dev, smi, checked, solves, batch_out, seq_out)
+    cli_counts = phase_entry_point(dev, smi, checked, solves, rows[2]["ms"])
     for r, sym in zip(rows, ("sba_det_pyramid", "sba_haar_trace", "sba_top2")):
         r["launches"] = counts[sym]
         r["launches_per_pair"] = counts[sym] / N_PAIRS_2K
@@ -2662,6 +3060,7 @@ def main():
         r["launches_per_batch_by_phase"] = {k: c[sym] for k, c in per_batch.items()}
         r["launches_per_frontend_2k"] = {k: c[sym] for k, c in per_frontend.items()}
         r["launches_per_rank_by_phase"] = {k: [c[sym] for c in cs] for k, cs in per_rank.items()}
+        r["launches_per_cli_run"] = cli_counts[sym]
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -511,3 +511,62 @@ def test_run_sequence_from_numpy_frames_runs_on_the_card(dev):
     cpu = sequence.run_sequence(frames, None, cfg, gumbel=draws, closure_gumbel=one, **kw)
     for a, b in zip(card.pairwise_rot.cpu().numpy(), cpu.pairwise_rot.numpy()):
         assert chip_smoke.rot_err_deg_host(a, chip_smoke.angle_axis_matrix(b)) < 0.5
+
+
+def test_cli_on_the_card(dev, tmp_path, capsys):
+    """The port's CLI with its default --device (the card) on a 512x1024
+    synthetic pair: K1, K2 and K3 launch, the five outputs are written,
+    the rotation lies within the bench's 512 compat median gate (2.5
+    deg), and the printed pose is run_two_view's on the card for the same
+    PNGs, config and seed."""
+    import chip_smoke
+    from spherical_bundle_adjuster_tpu_torch import cli
+    from spherical_bundle_adjuster_tpu_torch.models import twoview
+    from spherical_bundle_adjuster_tpu_torch.utils import io
+
+    left, right, R = chip_smoke.make_pair(0, 512, 1024, dev)
+    paths = [str(tmp_path / "l.png"), str(tmp_path / "r.png")]
+    io.save_image(left, paths[0])
+    io.save_image(right, paths[1])
+    euler = np.random.default_rng(chip_smoke.SEED).uniform(-5, 5, (chip_smoke.N_DISTINCT, 3))[0]
+    argv = [*paths, *(repr(float(v)) for v in euler), "0", "0", "0", "1", "--max-keypoints",
+            "256", "--ratio-thresh", "0.5", "--out-dir", str(tmp_path / "out")]
+    before = [k.launches for k in chip_smoke.LAUNCHED]
+    assert cli.main(argv) == 0
+    assert all(k.launches > b for k, b in zip(chip_smoke.LAUNCHED, before))
+    stdout = capsys.readouterr().out
+    rot = chip_smoke.printed(stdout, "rotation vector in degree ")
+    assert chip_smoke.rot_err_deg_host(np.deg2rad(np.array(rot, np.float64)), R) <= 2.5
+    args = cli.build_parser().parse_args(argv)
+    out = twoview.run_two_view(left, right, torch.Generator(dev).manual_seed(0),
+                               cli.build_config(args))
+    assert rot == [str(v) for v in out.rotation_deg.cpu().numpy().tolist()]
+    files = sorted(p.name for p in (tmp_path / "out").iterdir())
+    assert [f for f in files if not f.endswith(".png")] == ["log.txt", "log_d.txt", "metrics.jsonl"]
+    assert "d_found.png" in files and len(files) == 5
+
+
+def test_checkpoint_moves_between_the_card_and_the_cpu(dev, tmp_path):
+    """A problem saved from the card loads onto the CPU (and back onto the
+    card) bit for bit, each leaf on the device and with the dtype of its
+    leaf in `like`; a resumed solve on the card equals an uninterrupted
+    one bit for bit."""
+    import chip_smoke
+    from spherical_bundle_adjuster_tpu_torch.models import multiview
+    from spherical_bundle_adjuster_tpu_torch.utils import checkpoint
+
+    fields, _ = chip_smoke.synth_multiview(12, 512, 4, 0.03, 0)
+    card = multiview.problem_from_numpy(fields, dev)
+    cpu = multiview.problem_from_numpy(fields, "cpu")
+    checkpoint.save_checkpoint(str(tmp_path / "c"), card, step=1)
+    for like in (cpu, card):
+        got, step = checkpoint.load_checkpoint(str(tmp_path / "c"), like)
+        assert step == 1
+        for g, w, c in zip(got, like, card):
+            assert g.device == w.device and g.dtype == w.dtype
+            assert torch.equal(g.cpu(), c.cpu())
+    _, first = checkpoint.solve_multiview_resumable(card, str(tmp_path / "a"), 4, 2)
+    resumed, rest = checkpoint.solve_multiview_resumable(card, str(tmp_path / "a"), 8, 2)
+    whole, costs = checkpoint.solve_multiview_resumable(card, str(tmp_path / "b"), 8, 2)
+    assert torch.equal(resumed.poses, whole.poses) and torch.equal(resumed.landmarks, whole.landmarks)
+    assert torch.equal(torch.cat([first, rest]), costs) and costs.device.type == "cuda"

@@ -151,3 +151,35 @@ def test_distributed_layer_and_rank_workers_import_no_jax():
         if isinstance(node, (ast.Import, ast.ImportFrom)):
             names = [a.name for a in node.names] if isinstance(node, ast.Import) else [node.module]
             assert not any(n.split(".")[0] in ("jax", REFERENCE) for n in names), node.lineno
+
+
+def test_cli_defaults_to_the_card():
+    """The port's entry point runs on the card unless --device says
+    otherwise (the JAX package's CLI has no such flag)."""
+    from spherical_bundle_adjuster_tpu_torch import cli
+
+    args = cli.build_parser().parse_args(["l", "r", "0", "0", "0", "0", "0", "0", "1"])
+    assert args.device == "cuda"
+
+
+def test_cli_checkpoint_and_native_load_no_orbax_and_build_nothing():
+    """Importing cli, utils.checkpoint and utils.native (and what they
+    import) loads no orbax, and importing utils.native starts no compiler
+    and loads no library: it builds at first use."""
+    code = (
+        "import subprocess, sys\n"
+        "def refuse(*a, **k):\n"
+        "    raise AssertionError('a process was started at import: ' + repr(a))\n"
+        "subprocess.run = subprocess.Popen = refuse\n"
+        "from spherical_bundle_adjuster_tpu_torch import cli\n"
+        "from spherical_bundle_adjuster_tpu_torch.utils import checkpoint, native\n"
+        "bad = [m for m in sys.modules if m == 'orbax' or m.startswith('orbax.')\n"
+        "       or m in ('jax', %r) or m.startswith(('jax.', %r))]\n" % (REFERENCE, REFERENCE + ".")
+        + "assert not bad, bad\n"
+        "assert native._LIB is None and not native._TRIED\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=_env(), cwd=ROOT, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"

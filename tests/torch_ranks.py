@@ -1,6 +1,6 @@
 """Rank workers of the port's multi-process CPU tests
 (tests/test_torch_mesh.py, tests/test_torch_dist_ba.py,
-tests/test_torch_sequence.py).
+tests/test_torch_sequence.py, tests/test_torch_checkpoint.py).
 
 parallel/launch.run_ranks spawns every rank afresh, and the rank imports
 this module to find its worker, so it imports neither jax nor the JAX
@@ -18,6 +18,7 @@ import torch.distributed as dist
 from spherical_bundle_adjuster_tpu_torch.models import multiview as mv
 from spherical_bundle_adjuster_tpu_torch.models import sequence
 from spherical_bundle_adjuster_tpu_torch.parallel import dist_ba, mesh
+from spherical_bundle_adjuster_tpu_torch.utils import checkpoint
 
 # every process group's timeout: a rank left waiting fails in a minute
 TIMEOUT = timedelta(seconds=60)
@@ -132,3 +133,29 @@ def sequence_case(rank, world, frames, cfg, gumbel, closure_gumbel, kw, timeout_
                                 gumbel=torch.from_numpy(gumbel),
                                 closure_gumbel=torch.from_numpy(closure_gumbel), **kw)
     return out, dict(m.axis("data").traffic)
+
+
+def checkpoint_cases(rank, world, fields, path):
+    """tests/test_torch_checkpoint.py's resumable solve over a `world`-rank
+    mesh: 2 of 4 rounds into `path` (the interruption), then the rest
+    from the checkpoint. Returns the solved poses, landmarks and both
+    calls' costs, and the steps this rank wrote."""
+    m = mesh.make_mesh(timeout=TIMEOUT)
+    writes = []
+    save = checkpoint.save_checkpoint
+
+    def counted_save(p, tree, step=None):
+        writes.append(step)
+        return save(p, tree, step)
+
+    checkpoint.save_checkpoint = counted_save
+    try:
+        prob = mv.problem_from_numpy(fields, "cpu")
+        _, first = checkpoint.solve_multiview_resumable(prob, path, total_iters=4,
+                                                        iters_per_round=2, mesh=m)
+        solved, rest = checkpoint.solve_multiview_resumable(prob, path, total_iters=8,
+                                                            iters_per_round=2, mesh=m)
+    finally:
+        checkpoint.save_checkpoint = save
+    return dict(poses=solved.poses, landmarks=solved.landmarks, costs=torch.cat([first, rest]),
+                writes=writes)
