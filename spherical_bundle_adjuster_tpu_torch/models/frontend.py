@@ -31,6 +31,7 @@ import torch
 
 from ..core import cube
 from ..ops import integral, match, surf, warp
+from ..utils import profiling
 from ..utils.config import DENSE_BAND_PITCHES, PipelineConfig
 
 
@@ -148,6 +149,7 @@ def _chunked(fn, lefts, rights, cfg, chunk: int):
 _PAIR_FRONTENDS = {"erp": _erp_pairs, "cubemap": _cubemap_pairs}
 
 
+@profiling.spanned("sba.frontend")
 def frontend_pairs(name: str, lefts, rights, cfg: PipelineConfig = PipelineConfig(),
                    chunk: int = 0) -> FrontendResult:
     """P pairs (P, H, W, 3) through front end `name`, `chunk` pairs per

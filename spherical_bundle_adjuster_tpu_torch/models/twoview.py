@@ -30,6 +30,7 @@ import torch
 
 from ..core import rotation, sphere
 from ..solver import epipolar, lm
+from ..utils import profiling
 from ..utils.config import PipelineConfig
 from .frontend import FRONTENDS, FrontendResult, frontend_pairs
 
@@ -202,6 +203,7 @@ def _select_start(b_left, b_right, match_valid, rs, scores, ba):
     return torch.where(rot_dom, torch.argmin(mr, dim=-1), win), rot_dom
 
 
+@profiling.spanned("sba.refine")
 def adjust_from_matches(b_left, b_right, match_valid, generator,
                         cfg: PipelineConfig = PipelineConfig(), init_depth=None,
                         gumbel=None):
@@ -222,8 +224,9 @@ def adjust_from_matches(b_left, b_right, match_valid, generator,
     init_d = torch.full(b_left.shape[:-1] + (2,), d0, dtype=torch.float32, device=dev)
 
     if ba.multi_start and not ba.reference_compat:
-        e_k, t_k, ok = epipolar.initial_guess_topk(b_left, b_right, match_valid, generator,
-                                                   cfg.ransac, ba.multi_start, gumbel)
+        with profiling.span("sba.consensus"):
+            e_k, t_k, ok = epipolar.initial_guess_topk(b_left, b_right, match_valid, generator,
+                                                       cfg.ransac, ba.multi_start, gumbel)
         if lead:  # each pair's bank, shared by its starts
             b_left, b_right = b_left[..., None, :, :], b_right[..., None, :, :]
             match_valid, init_d = match_valid[..., None, :], init_d[..., None, :, :]
@@ -240,7 +243,9 @@ def adjust_from_matches(b_left, b_right, match_valid, generator,
         return (epipolar.pick(rs, win), epipolar.pick(ts, win), epipolar.pick(ds, win),
                 guess, tel)
 
-    guess = epipolar.initial_guess(b_left, b_right, match_valid, generator, cfg.ransac, gumbel)
+    with profiling.span("sba.consensus"):
+        guess = epipolar.initial_guess(b_left, b_right, match_valid, generator, cfg.ransac,
+                                       gumbel)
     r, t, d, _, reps = _solve_from_init(
         b_left, b_right, match_valid, guess.euler, guess.translation, guess.ok, cfg, init_d
     )
@@ -268,6 +273,7 @@ def _result(fr: FrontendResult, r, t, d, guess, tel) -> TwoViewResult:
     )
 
 
+@profiling.entry_call("sba.two_view")
 def run_two_view(im_left, im_right, generator, cfg: PipelineConfig = PipelineConfig(),
                  frontend: str = "band", gumbel=None) -> TwoViewResult:
     """End-to-end two-view spherical BA on an ERP image pair (H, W, 3).
@@ -290,6 +296,7 @@ def run_two_view(im_left, im_right, generator, cfg: PipelineConfig = PipelineCon
 BATCH_CHUNK = 16
 
 
+@profiling.entry_call("sba.two_view")
 def run_two_view_batch(im_left, im_right, generator, cfg: PipelineConfig = PipelineConfig(),
                        frontend: str = "band", batch_chunk: int = BATCH_CHUNK,
                        gumbel=None) -> TwoViewResult:

@@ -27,7 +27,8 @@ one.
 `lm_fixed` runs a batch of independent problems. Each element stops at
 its own convergence or damping cap and keeps its state frozen from then
 on (what the reference's vmapped while_loop does); the loop ends when no
-element is active, at the cost of one host sync per iteration. The loop
+element is active, at the cost of one host sync per iteration, and counts
+its trips in utils/profiling.COUNTS under the stage that runs it. The loop
 is host-driven, one small launch per tensor op, so it keeps the system
 of each accepted trial point instead of rebuilding it at the top of the
 next iteration (the reference re-evaluates it; the values are the same).
@@ -35,12 +36,30 @@ next iteration (the reference re-evaluates it; the values are the same).
 
 from __future__ import annotations
 
+from contextlib import contextmanager
 from typing import NamedTuple
 
 import torch
 
 from ..core import rotation, smallmat
+from ..utils import profiling
 from ..utils.config import BaConfig
+
+_COUNTING = ("other", None)  # (stage, kept): what lm_fixed counts its trips under
+
+
+@contextmanager
+def _counting(stage, kept=None):
+    """lm_fixed's loop trips inside count under lm.<stage>; `kept` (N,)
+    marks the problems whose result the stage keeps (None: every one).
+    A context and not arguments of lm_fixed, whose signature
+    benchmark/tests/test_bench_faults.py stubs."""
+    global _COUNTING
+    outer, _COUNTING = _COUNTING, (stage, kept)
+    try:
+        yield
+    finally:
+        _COUNTING = outer
 
 
 def reprojection_residual(b1, b2, d1, d2, r, t):
@@ -85,6 +104,11 @@ def lm_fixed(cost_and_system, x0, cfg: BaConfig, max_iters=None, lower_bound=Non
     `max_iters`, stopping on Ceres' function_tolerance criterion
     |cost - cost_new| <= ftol * cost or when the damping saturates.
     Returns (x (N, n), StageReport with (N,) fields).
+
+    Each trip of the loop reads on the host how many elements are still
+    active, and how many of those the stage keeps (_counting), in its one
+    host sync, and adds to profiling.COUNTS under the stage:
+    lm.<stage>.syncs 1, .active the kept ones, .slots N.
     """
     n = x0.shape[-1]
     iters = cfg.max_iterations if max_iters is None else max_iters
@@ -99,9 +123,21 @@ def lm_fixed(cost_and_system, x0, cfg: BaConfig, max_iters=None, lower_bound=Non
     lam = torch.full_like(init_cost, cfg.lm_lambda_init)
     it = torch.zeros(init_cost.shape, dtype=torch.int32, device=dev)
     done = torch.zeros(init_cost.shape, dtype=torch.bool, device=dev)
+    counts, slots = profiling.COUNTS, x0.shape[0]
+    stage, kept = _COUNTING
+    k_syncs, k_active, k_slots = (f"lm.{stage}.{k}" for k in ("syncs", "active", "slots"))
+    if kept is not None:  # (2, N): every problem, the kept ones
+        kept = torch.stack([torch.ones_like(kept), kept])
     for _ in range(iters):
         active = ~done
-        if not bool(active.any()):
+        if kept is None:
+            n_active = n_kept = int(active.sum())
+        else:
+            n_active, n_kept = (active & kept).sum(-1).tolist()
+        counts[k_syncs] += 1
+        counts[k_active] += n_kept
+        counts[k_slots] += slots
+        if n_active == 0:
             break
         diag = torch.diagonal(H, dim1=-2, dim2=-1)
         damped = H + lam[:, None, None] * torch.diag_embed(diag) + 1e-12 * eye
@@ -131,6 +167,7 @@ def lm_fixed(cost_and_system, x0, cfg: BaConfig, max_iters=None, lower_bound=Non
 # Stage: depths (d-only), one 2x2 problem per match
 
 
+@profiling.spanned("sba.lm.depth")
 def solve_depths(b1, b2, d_init, r, t, match_valid, cfg: BaConfig):
     """Optimize per-match (d1, d2) with fixed (r, t).
 
@@ -163,7 +200,8 @@ def solve_depths(b1, b2, d_init, r, t, match_valid, cfg: BaConfig):
         cost = 0.5 * (torch.sum(rep * rep, dim=-1) + torch.sum(bar * bar, dim=-1))
         return cost, H, g
 
-    d_opt, reps = lm_fixed(sys, d_init.reshape(-1, 2), cfg, lower_bound=cfg.d_lower_bound)
+    with _counting("depth", match_valid.reshape(-1)):  # padded and invalid slots are dropped
+        d_opt, reps = lm_fixed(sys, d_init.reshape(-1, 2), cfg, lower_bound=cfg.d_lower_bound)
     d_out = torch.where(match_valid[..., None], d_opt.reshape(d_init.shape), d_init)
     w = match_valid.to(torch.float32)
     report = StageReport(
@@ -178,10 +216,10 @@ def solve_depths(b1, b2, d_init, r, t, match_valid, cfg: BaConfig):
 # Stages: rotation-only / translation-only (3 global params, Huber IRLS)
 
 
-def _global_stage(param0, residual_and_jacobian, match_valid, cfg: BaConfig):
+def _global_stage(stage, param0, residual_and_jacobian, match_valid, cfg: BaConfig):
     """LM over a 3-vector per start with per-match Huber-weighted
-    3-residual blocks. param0: (..., 3); residual_and_jacobian(p (..., 3))
-    -> (res (..., M, 3), J (..., M, 3, 3))."""
+    3-residual blocks, its trips counted under `stage`. param0: (..., 3);
+    residual_and_jacobian(p (..., 3)) -> (res (..., M, 3), J (..., M, 3, 3))."""
     w_valid = match_valid.to(torch.float32)
     lead = param0.shape[:-1]
 
@@ -194,7 +232,8 @@ def _global_stage(param0, residual_and_jacobian, match_valid, cfg: BaConfig):
         cost = huber_cost(res, cfg.huber_delta, w_valid)
         return cost.reshape(-1), H.reshape(-1, 3, 3), g.reshape(-1, 3)
 
-    x, rep = lm_fixed(sys, param0.reshape(-1, 3), cfg)
+    with _counting(stage):
+        x, rep = lm_fixed(sys, param0.reshape(-1, 3), cfg)
     return x.reshape(param0.shape), StageReport(*(f.reshape(lead) for f in rep))
 
 
@@ -208,6 +247,7 @@ def _depth_columns(d_pair, match_valid):
     return d_pair[..., 0], d_pair[..., 1]
 
 
+@profiling.spanned("sba.lm.rot")
 def solve_rotation(b1, b2, d_pair, r0, t, match_valid, cfg: BaConfig):
     """Rotation-only stage. d_pair: the (..., 2) pair (d1, d2) used for
     EVERY residual (reference-compat quirk) or per-match depths
@@ -220,9 +260,10 @@ def solve_rotation(b1, b2, d_pair, r0, t, match_valid, cfg: BaConfig):
         res = reprojection_residual(b1, b2, d1, d2, r[..., None, :], t_)
         return res, rotation.rotation_jacobian(r, x1)
 
-    return _global_stage(r0, residual_and_jacobian, match_valid, cfg)
+    return _global_stage("rot", r0, residual_and_jacobian, match_valid, cfg)
 
 
+@profiling.spanned("sba.lm.tran")
 def solve_translation(b1, b2, d_pair, r, t0, match_valid, cfg: BaConfig):
     """Translation-only stage (same depth semantics as solve_rotation);
     the residual is linear in t with Jacobian I."""
@@ -233,13 +274,14 @@ def solve_translation(b1, b2, d_pair, r, t0, match_valid, cfg: BaConfig):
     def residual_and_jacobian(t):
         return reprojection_residual(b1, b2, d1, d2, r_, t[..., None, :]), eye
 
-    return _global_stage(t0, residual_and_jacobian, match_valid, cfg)
+    return _global_stage("tran", t0, residual_and_jacobian, match_valid, cfg)
 
 
 # ---------------------------------------------------------------------------
 # Joint Schur-complement Gauss-Newton (corrected formulation)
 
 
+@profiling.spanned("sba.joint_schur")
 def solve_joint_schur(b1, b2, d0, r0, t0, match_valid, cfg: BaConfig, num_iters=20):
     """Joint (r, t, d) refinement by Schur elimination, `num_iters` fixed
     damped steps.
