@@ -29,13 +29,16 @@ its own convergence or damping cap and keeps its state frozen from then
 on (what the reference's vmapped while_loop does); the loop ends when no
 element is active, at the cost of one host sync per iteration, and counts
 its trips in utils/profiling.COUNTS under the stage that runs it. The loop
-is host-driven, one small launch per tensor op, so it keeps the system
-of each accepted trial point instead of rebuilding it at the top of the
-next iteration (the reference re-evaluates it; the values are the same).
+is host-driven, so it keeps the system of each accepted trial point
+instead of rebuilding it at the top of the next iteration (the reference
+re-evaluates it; the values are the same). On the CPU each trip is one
+small op after another; on the card every trip after the first replays
+one CUDA graph of the trip's ops.
 """
 
 from __future__ import annotations
 
+import functools
 from contextlib import contextmanager
 from typing import NamedTuple
 
@@ -109,58 +112,144 @@ def lm_fixed(cost_and_system, x0, cfg: BaConfig, max_iters=None, lower_bound=Non
     active, and how many of those the stage keeps (_counting), in its one
     host sync, and adds to profiling.COUNTS under the stage:
     lm.<stage>.syncs 1, .active the kept ones, .slots N.
+
+    On CUDA tensors, once a problem is still active after the first trip,
+    the loop captures one trip as a CUDA graph (lm.graphs +1) and replays
+    it for every later trip (lm.<stage>.graph_trips +1 a replay): one
+    launch in place of a trip's hundred or more small ops, the same
+    kernels on the same buffers, the same host read a trip.
     """
+    return _loop(cost_and_system, x0, cfg, max_iters, lower_bound, graphed=x0.is_cuda)
+
+
+def _lm_eager(cost_and_system, x0, cfg: BaConfig, max_iters=None, lower_bound=None):
+    """lm_fixed with every trip run op by op, on any device."""
+    return _loop(cost_and_system, x0, cfg, max_iters, lower_bound, graphed=False)
+
+
+def _loop(cost_and_system, x0, cfg, max_iters, lower_bound, graphed):
     n = x0.shape[-1]
     iters = cfg.max_iterations if max_iters is None else max_iters
-    ftol = cfg.function_tolerance
     small_solve = {2: smallmat.solve2, 3: smallmat.solve3}[n]
-    dev = x0.device
-    eye = torch.eye(n, dtype=x0.dtype, device=dev)
+    eye = torch.eye(n, dtype=x0.dtype, device=x0.device)
+    step = functools.partial(_trip, cost_and_system, cfg, small_solve, eye, lower_bound)
 
-    x = x0
     cost, H, g = cost_and_system(x0)
-    init_cost = cost_s = cost
-    lam = torch.full_like(init_cost, cfg.lm_lambda_init)
-    it = torch.zeros(init_cost.shape, dtype=torch.int32, device=dev)
-    done = torch.zeros(init_cost.shape, dtype=torch.bool, device=dev)
+    init_cost = cost
+    lam = torch.full_like(cost, cfg.lm_lambda_init)
+    it = torch.zeros(cost.shape, dtype=torch.int32, device=x0.device)
+    done = torch.zeros(cost.shape, dtype=torch.bool, device=x0.device)
+    state = (x0, H, g, cost, cost, lam, it, done)
     counts, slots = profiling.COUNTS, x0.shape[0]
     stage, kept = _COUNTING
-    k_syncs, k_active, k_slots = (f"lm.{stage}.{k}" for k in ("syncs", "active", "slots"))
-    if kept is not None:  # (2, N): every problem, the kept ones
-        kept = torch.stack([torch.ones_like(kept), kept])
-    for _ in range(iters):
-        active = ~done
-        if kept is None:
-            n_active = n_kept = int(active.sum())
-        else:
-            n_active, n_kept = (active & kept).sum(-1).tolist()
-        counts[k_syncs] += 1
-        counts[k_active] += n_kept
-        counts[k_slots] += slots
+    key = f"lm.{stage}."
+    every = torch.ones_like(done)
+    kept = torch.stack([every, every if kept is None else kept])  # (2, N)
+    n_left = _active(done, kept)
+    graph = None
+    for trip in range(iters):
+        n_active, n_kept = n_left.tolist()
+        counts[key + "syncs"] += 1
+        counts[key + "active"] += n_kept
+        counts[key + "slots"] += slots
         if n_active == 0:
             break
-        diag = torch.diagonal(H, dim1=-2, dim2=-1)
-        damped = H + lam[:, None, None] * torch.diag_embed(diag) + 1e-12 * eye
-        delta = -small_solve(damped, g)
-        x_new = x + delta
-        if lower_bound is not None:
-            x_new = torch.clamp(x_new, min=lower_bound)
-        new_cost, new_H, new_g = cost_and_system(x_new)
-        accept = new_cost < cost
-        lam_new = torch.where(accept, lam / cfg.lm_lambda_down, lam * cfg.lm_lambda_up)
-        lam_new = torch.clamp(lam_new, 1e-12, 1e10)
-        converged = accept & (cost - new_cost <= ftol * torch.clamp(cost, min=1e-30))
-        stuck = ~accept & (lam >= 1e6)
-        upd = active & accept
-        x = torch.where(upd[:, None], x_new, x)
-        H = torch.where(upd[:, None, None], new_H, H)
-        g = torch.where(upd[:, None], new_g, g)
-        cost_s = torch.where(active, torch.minimum(new_cost, cost), cost_s)
-        cost = torch.where(upd, new_cost, cost)
-        lam = torch.where(active, lam_new, lam)
-        it = it + active.to(torch.int32)
-        done = done | (active & (converged | stuck))
+        if graphed and trip > 0:  # every buffer of `state` is the loop's own from here
+            if graph is None:
+                graph = _capture(step, state, kept, n_left)
+                counts["lm.graphs"] += 1
+            graph.replay()
+            counts[key + "graph_trips"] += 1
+        else:
+            state = step(state)
+            n_left = _active(state[-1], kept)
+    x, _, _, _, cost_s, _, it, _ = state
     return x, StageReport(it, init_cost, cost_s)
+
+
+def _active(done, kept, out=None):
+    """(2,) the problems still active: every one, the ones kept."""
+    return torch.sum(~done & kept, dim=-1, out=out)
+
+
+def _trip(cost_and_system, cfg, small_solve, eye, lower_bound, state):
+    """One trip of the loop after its host read, out of place: the damped
+    solve, the clamp, the trial point's system and the accept/reject
+    updates of state = (x, H, g, cost, cost_s, lam, it, done)."""
+    x, H, g, cost, cost_s, lam, it, done = state
+    active = ~done
+    diag = torch.diagonal(H, dim1=-2, dim2=-1)
+    damped = H + lam[:, None, None] * torch.diag_embed(diag) + 1e-12 * eye
+    delta = -small_solve(damped, g)
+    x_new = x + delta
+    if lower_bound is not None:
+        x_new = torch.clamp(x_new, min=lower_bound)
+    new_cost, new_H, new_g = cost_and_system(x_new)
+    accept = new_cost < cost
+    lam_new = torch.where(accept, lam / cfg.lm_lambda_down, lam * cfg.lm_lambda_up)
+    lam_new = torch.clamp(lam_new, 1e-12, 1e10)
+    converged = accept & (cost - new_cost <= cfg.function_tolerance * torch.clamp(cost, min=1e-30))
+    stuck = ~accept & (lam >= 1e6)
+    upd = active & accept
+    return (torch.where(upd[:, None], x_new, x),
+            torch.where(upd[:, None, None], new_H, H),
+            torch.where(upd[:, None], new_g, g),
+            torch.where(upd, new_cost, cost),
+            torch.where(active, torch.minimum(new_cost, cost), cost_s),
+            torch.where(active, lam_new, lam),
+            it + active.to(torch.int32),
+            done | (active & (converged | stuck)))
+
+
+def _capture(step, state, kept, n_left):
+    """A CUDA graph of one trip: `step` on `state`, its result copied back
+    into `state`, and the next trip's counts into `n_left`, all in place,
+    so that each replay runs one trip on the same buffers. Captured on
+    the device's capture stream into its pool (_capture_pool); the graph
+    and what it holds of the pool go when the caller drops it."""
+    dev = n_left.device
+    side, pool = _capture_pool(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+        try:
+            for buf, new in zip(state, step(state)):
+                buf.copy_(new)
+            _active(state[-1], kept, out=n_left)
+        finally:
+            graph.capture_end()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    return graph
+
+
+_POOLS = {}  # device index -> (capture stream, pool id, the graph that holds the pool open)
+
+
+def _capture_pool(dev):
+    """The stream and memory pool that every trip graph on `dev` is
+    captured on, made at the device's first capture and kept for the
+    process: each capture reuses the blocks the last one freed, where a
+    fresh pool a call would keep its memory reserved until the
+    allocator's cache is emptied. A one-op graph captured first holds the
+    pool open between captures: torch's allocators assert
+    (`it->second->use_count > 0`) when a capture reuses a pool that every
+    graph has left, the device allocator where nothing holds the pool and
+    the pinned-memory allocator, which counts a pool's graphs on its own,
+    where only a torch.cuda.MemPool does."""
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _POOLS:
+        side = torch.cuda.Stream(idx)
+        side.wait_stream(torch.cuda.current_stream(idx))
+        cell = torch.zeros(1, device=dev)
+        holder = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(side):
+            holder.capture_begin(capture_error_mode="thread_local")
+            cell.add_(1)
+            holder.capture_end()
+        _POOLS[idx] = side, holder.pool(), (holder, cell)
+    side, pool, _ = _POOLS[idx]
+    return side, pool
 
 
 # ---------------------------------------------------------------------------
