@@ -24,9 +24,19 @@ Phases, each printing its own line:
      (sequence_launch_shapes: passes of 1 to 16 pairs on each run's
      ladders, bands of 64 x 512 and 128 x 1024, banks of 256, 512 and 1024
      descriptors a side);
+  2b. lm_trips: the LM trip kernels (ops/cuda_lm, csrc/lm_trip.cu) of
+     the depth, rotation and translation stages at the cells' shapes
+     (leading axes () and (4,) at 1024 matches, (64,) and (64, 4) at
+     512), in compat and corrected mode, on a noisy synthetic scene: one
+     trip from the same state against lm._trip, and each whole stage
+     solve against lm._lm_eager, bit for bit, with the same LM counters,
+     no trip run op by op, and each kernel's launches (one a trip, and
+     POINT / SETTLE once more a solve for its initial evaluation); with
+     the device time of one trip, kernels and op by op;
   3. slice: run_two_view(..., frontend="band") on 4 synthetic 1024x2048
      rotation pairs under the 2K bench config (compat BA), with the
-     kernels' launch counts and the bench's 2K compat gates;
+     kernels' launch counts (K1-K3 and the LM trip kernels) and the
+     bench's 2K compat gates;
   4. slice_2k_corrected: the same 4 pairs in the bench's corrected mode
      (per-match depths, outlier gates, joint Schur, 4 starts, 240 RANSAC
      trials), with launch counts and the bench's 2K corrected gates;
@@ -146,9 +156,12 @@ Phases, each printing its own line:
      builds (else the reason is logged).
 
 Each pipeline phase sets the kernels' launch counts to 0 before its
-measured runs and fails if a kernel of the path was not launched.
+measured runs and fails if a kernel of the path was not launched; the
+pair phases and the 512x1024 batches (compat and corrected) also count
+and require the LM trip kernels.
 
-Then one JSON line with every kernel's numbers, and a last line
+Then one JSON line with every kernel's numbers (K1-K3 under "kernels",
+the LM trip kernels' launches by phase under "lm_kernels"), and a last line
 {"ok": true, "device": {...}}. Any failed phase raises and exits non-zero.
 """
 
@@ -180,7 +193,7 @@ from spherical_bundle_adjuster_tpu_torch.models import (
     evaluation, frontend, multiview, sequence, tracks, twoview,
 )
 from spherical_bundle_adjuster_tpu_torch.ops import (
-    cuda_match, cuda_surf, integral, kernels, segment, warp,
+    cuda_lm, cuda_match, cuda_surf, integral, kernels, segment, warp,
 )
 from spherical_bundle_adjuster_tpu_torch.parallel import dist_ba, launch
 from spherical_bundle_adjuster_tpu_torch.parallel import mesh as mesh_lib
@@ -657,6 +670,157 @@ def phase_kernels(dev):
     return rows, checked
 
 
+# (leading axes, matches) of the cells' LM stage solves: a 2K pair alone
+# (compat) and with 4 starts (corrected); the 64-pair batch at 512
+# matches, alone and with 4 starts
+LM_SHAPES = (((), 1024), ((4,), 1024), ((64,), 512), ((64, 4), 512))
+LM_STATE = ("x", "H", "g", "cost", "cost_s", "lam", "it", "done")
+
+
+def lm_problem(lead, m, dev, seed):
+    """A noisy two-view scene's bearing banks, shared by the starts, with
+    10% of the match slots invalid, and the stages' starts: unit depths
+    and a pose off the true one (tests/test_torch_lm_graph's recipe),
+    drawn on the CPU and moved to dev."""
+    g = torch.Generator().manual_seed(seed)
+    bank = lead[:-1] + (1,) if lead else ()
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g)
+
+    b1 = torch.nn.functional.normalize(randn(*bank, m, 3), dim=-1)
+    depth = 2.0 + 3.0 * torch.rand(bank + (m,), generator=g)
+    r_true, t_true = 0.1 * randn(*bank, 3), 0.3 * randn(*bank, 3)
+    x2 = rotation.rotate_angle_axis(r_true[..., None, :].expand(b1.shape), depth[..., None] * b1)
+    b2 = torch.nn.functional.normalize(x2 - t_true[..., None, :] + 0.01 * randn(*bank, m, 3), dim=-1)
+    valid = torch.rand(lead + (m,), generator=g) < 0.9
+    d0 = torch.ones(lead + (m, 2))
+    r0 = (r_true + 0.05 * randn(*lead, 3)).expand(lead + (3,)).contiguous()
+    t0 = (t_true + 0.1 * randn(*lead, 3)).expand(lead + (3,)).contiguous()
+    return [x.to(dev) for x in (b1, b2, valid, d0, r0, t0)]
+
+
+def lm_solve_stages(prob, cfg, compat, lm_fixed):
+    """The stages in order, each from the last one's result, as
+    run_two_view solves them, with lm.lm_fixed set to `lm_fixed` (the
+    stages call it through the module). Returns [(stage, result,
+    StageReport, the stage's growth of profiling.COUNTS)]."""
+    b1, b2, valid, d0, r0, t0 = prob
+    out = []
+
+    def run(stage, fn, *args):
+        before = profiling.COUNTS.copy()
+        res, rep = fn(*args)
+        out.append((stage, res, rep, profiling.COUNTS - before))
+        return res
+
+    real = lm.lm_fixed
+    lm.lm_fixed = lm_fixed
+    try:
+        d = run("depth", lm.solve_depths, b1, b2, d0, r0, t0, valid, cfg)
+        pair = d[..., 0, :] if compat else d
+        r = run("rot", lm.solve_rotation, b1, b2, pair, r0, t0, valid, cfg)
+        run("tran", lm.solve_translation, b1, b2, pair, r, t0, valid, cfg)
+    finally:
+        lm.lm_fixed = real
+    return out
+
+
+def lm_trip_state(prob, cfg, compat, dev):
+    """Each stage's (stage, trip kernels' problem, kept, lower bound, the
+    loop state after 3 trips op by op, lm._trip's arguments before it)."""
+    b1, b2, valid, d0, r0, t0 = prob
+    pair = d0[..., 0, :] if compat else d0
+    stages = [("depth", *lm._depth_system(b1, b2, r0, t0, valid, cfg), d0.reshape(-1, 2),
+               valid.reshape(-1), cfg.d_lower_bound),
+              ("rot", *lm._global_system(True, b1, b2, pair, t0, r0, valid, cfg),
+               r0.reshape(-1, 3), None, None),
+              ("tran", *lm._global_system(False, b1, b2, pair, r0, t0, valid, cfg),
+               t0.reshape(-1, 3), None, None)]
+    out = []
+    for stage, sys, problem, x0, kept, lower in stages:
+        n = x0.shape[-1]
+        args = (sys, cfg, {2: lm.smallmat.solve2, 3: lm.smallmat.solve3}[n],
+                torch.eye(n, device=dev), lower)
+        cost, H, g = sys(x0)
+        state = (x0, H, g, cost, cost, torch.full_like(cost, cfg.lm_lambda_init),
+                 torch.zeros(cost.shape, dtype=torch.int32, device=dev),
+                 torch.zeros(cost.shape, dtype=torch.bool, device=dev))
+        for _ in range(3):
+            state = lm._trip(*args, state)
+        out.append((stage, problem, kept, lower, state, args))
+    return out
+
+
+def phase_lm(dev):
+    """The LM trip kernels against the loop run op by op, at the cells'
+    shapes in both modes: one trip from the same state against lm._trip
+    and whole stage solves against lm._lm_eager, bit for bit, with equal
+    LM counters and each kernel's launches; the device time of one trip.
+    Returns one row per (shape, mode, stage)."""
+    cfg = BaConfig()
+    rows = []
+
+    def no_trip_op_by_op(*args):
+        raise PhaseError("an LM trip ran op by op on the card")
+
+    for lead, m in LM_SHAPES:
+        prob = lm_problem(lead, m, dev, seed=7)
+        for compat in (True, False):
+            mode = "compat" if compat else "corrected"
+            trip_rows = {}
+            for stage, problem, kept, lower, state, args in lm_trip_state(prob, cfg, compat, dev):
+                ref = lm._trip(*args, state)
+                got = tuple(t.clone() for t in state)
+                counts = torch.zeros(2, dtype=torch.int32, device=dev)
+                trips = cuda_lm.Trips(problem, got, cfg, lower, kept)
+                trips.run(counts)
+                for name, a, b in zip(LM_STATE, got, ref):
+                    require(torch.equal(a, b), f"LM {stage} trip at {lead}x{m} {mode}: {name} "
+                            f"differs from lm._trip in {int((a != b).sum())} values")
+                every = torch.ones_like(ref[-1])
+                want = lm._active(ref[-1], torch.stack([every, every if kept is None else kept]))
+                require(counts.tolist() == want.tolist(),
+                        f"LM {stage} trip at {lead}x{m} {mode}: counts {counts.tolist()}, "
+                        f"lm._trip's {want.tolist()}")
+                trip_rows[stage] = dict(kernel_trip_ms=time_ms(lambda: trips.run(counts)),
+                                        op_by_op_trip_ms=time_ms(lambda: lm._trip(*args, state)))
+            ref = lm_solve_stages(prob, cfg, compat, lm._lm_eager)
+            before = [k.launches for k in LM_LAUNCHED]
+            real_trip, lm._trip = lm._trip, no_trip_op_by_op
+            try:
+                got = lm_solve_stages(prob, cfg, compat, lm.lm_fixed)
+            finally:
+                lm._trip = real_trip
+            grew = [k.launches - b for k, b in zip(LM_LAUNCHED, before)]
+            ktrips = {}
+            for (stage, res, rep, counts), (_, res_e, rep_e, counts_e) in zip(got, ref):
+                require(torch.equal(res, res_e), f"LM {stage} solve at {lead}x{m} {mode}: "
+                        f"{int((res != res_e).sum())} values differ from lm._lm_eager")
+                for name, a, b in zip(lm.StageReport._fields, rep, rep_e):
+                    require(torch.equal(a, b), f"LM {stage} solve at {lead}x{m} {mode}: "
+                            f"StageReport.{name} differs from lm._lm_eager")
+                ktrips[stage] = counts.pop(f"lm.{stage}.kernel_trips", 0)
+                require(counts == counts_e, f"LM {stage} solve at {lead}x{m} {mode}: counters "
+                        f"{dict(counts)}, lm._lm_eager's {dict(counts_e)}")
+                syncs = counts[f"lm.{stage}.syncs"]
+                require(ktrips[stage] in (syncs - 1, cfg.max_iterations),
+                        f"LM {stage} solve at {lead}x{m} {mode}: {ktrips[stage]} kernel trips "
+                        f"for {syncs} host reads")
+                rows.append(dict(lead=list(lead), matches=m, mode=mode, stage=stage,
+                                 kernel_trips=ktrips[stage], syncs=syncs,
+                                 iterations_max=int(rep.iterations.max()), **trip_rows[stage]))
+            depth, others = ktrips["depth"], ktrips["rot"] + ktrips["tran"]
+            want = [depth + 1, depth + 1, others, others + 2, others + 2]
+            require(grew == want, f"LM solves at {lead}x{m} {mode}: launches "
+                    f"{dict(zip(lm_launches(), grew))}, expected {want}")
+    log("lm_trips", bit_for_bit=True, rows=rows,
+        note="kernel trips and solves equal lm._trip / lm._lm_eager bit for bit; "
+        "trip ms: device time of one trip of every problem left in the state after 3 "
+        "trips op by op")
+    return rows
+
+
 def run_pair(left, right, cfg, dev, seed, gumbel=None):
     """One run_two_view call and its wall time in ms (CUDA events on the
     current stream; the pipeline syncs the host on its own as it goes)."""
@@ -683,11 +847,9 @@ def phase_slice(dev):
     h, w = SIZE_2K
     pairs = [make_pair(i, h, w, dev) for i in range(N_PAIRS_2K)]
     run_pair(pairs[0][0], pairs[0][1], CFG_2K, dev, seed=0)  # warm-up
-    launched = (cuda_surf.DET_PYRAMID, cuda_surf.HAAR_TRACE, cuda_match.TOP2)
-    for k in launched:
-        k.launches = 0
-    results = [run_pair(l, r, CFG_2K, dev, seed=i) for i, (l, r, _) in enumerate(pairs)]
-    counts = {k.symbol: k.launches for k in launched}
+    results, counts = counted(
+        lambda: [run_pair(l, r, CFG_2K, dev, seed=i) for i, (l, r, _) in enumerate(pairs)])
+    counts.update(lm_launches())
     for out, _ in results:
         check_output(out, CFG_2K)
     matches = [int(o.num_matches) for o, _ in results]
@@ -705,13 +867,21 @@ def phase_slice(dev):
 
 
 LAUNCHED = (cuda_surf.DET_PYRAMID, cuda_surf.HAAR_TRACE, cuda_match.TOP2)
+LM_LAUNCHED = cuda_lm.KERNELS
+
+
+def lm_launches():
+    """{LM trip kernel symbol: launches} since `counted` set them to 0."""
+    return {k.symbol: k.launches for k in LM_LAUNCHED}
 
 
 def run_counted(pairs, cfg, dev):
     """One run_two_view per pair with every launch count set to 0 first;
-    returns ([(out, ms)], {kernel symbol: launches})."""
+    returns ([(out, ms)], {kernel symbol: launches}), the LM trip kernels
+    included."""
     results, counts = counted(
         lambda: [run_pair(l, r, cfg, dev, seed=i) for i, (l, r, _) in enumerate(pairs)])
+    counts.update(lm_launches())
     require(all(c > 0 for c in counts.values()), f"a kernel of the path never launched: {counts}")
     return results, counts
 
@@ -814,9 +984,10 @@ def phase_pitch60(dev):
 
 
 def counted(fn):
-    """fn() with every launch count set to 0 just before it; returns
-    (fn's result, {kernel symbol: launches})."""
-    for k in LAUNCHED:
+    """fn() with every launch count set to 0 just before it, the LM trip
+    kernels' too (lm_launches reads theirs); returns (fn's result,
+    {K1-K3 symbol: launches})."""
+    for k in LAUNCHED + LM_LAUNCHED:
         k.launches = 0
     out = fn()
     return out, {k.symbol: k.launches for k in LAUNCHED}
@@ -899,6 +1070,8 @@ def phase_batch(dev):
     default = twoview.BATCH_CHUNK
     require(default in sweep, f"the default batch_chunk {default} is not in the sweep")
     (out, _), counts = counted(lambda: run_batch(lefts, rights, cfg, gumbel))
+    counts.update(lm_launches())
+    require(all(c > 0 for c in counts.values()), f"a kernel of the path never launched: {counts}")
     acc = accuracy([(pair_of(out, i), 0.0) for i in range(N_DISTINCT)], pairs, cfg, h, w)
     # every pair against its single-pair run with the same draw row (also
     # the single-pair timing)
@@ -998,6 +1171,8 @@ def phase_batch_corrected(dev):
     gumbel = draws(cfg, N_DISTINCT, dev)
     run_batch(lefts, rights, cfg, gumbel)  # warm-up
     (out, ms), counts = counted(lambda: run_batch(lefts, rights, cfg, gumbel))
+    counts.update(lm_launches())
+    require(all(c > 0 for c in counts.values()), f"a kernel of the path never launched: {counts}")
     times = [ms] + [run_batch(lefts, rights, cfg, gumbel)[1] for _ in range(2)]
     acc = accuracy([(pair_of(out, i), 0.0) for i in range(N_DISTINCT)], pairs, cfg, h, w)
     single = singles_ms(pairs, cfg, dev)
@@ -3037,6 +3212,7 @@ def main():
     dev, smi = phase_device()
     phase_build()
     rows, checked = phase_kernels(dev)
+    lm_rows = phase_lm(dev)
     counts = phase_slice(dev)
     by_phase = {"slice_2k_corrected": (phase_2k_corrected(dev), N_PAIRS_2K)}
     for mode, c in phase_512(dev).items():
@@ -3061,7 +3237,15 @@ def main():
         r["launches_per_frontend_2k"] = {k: c[sym] for k, c in per_frontend.items()}
         r["launches_per_rank_by_phase"] = {k: [c[sym] for c in cs] for k, cs in per_rank.items()}
         r["launches_per_cli_run"] = cli_counts[sym]
-    print(json.dumps({"kernels": rows}), flush=True)
+    lm_batches = ("batch_512x1024", "batch_512x1024_corrected")
+    lm_kernels = [dict(
+        name=k.symbol, source="spherical_bundle_adjuster_tpu_torch/csrc/lm_trip.cu",
+        launches=counts[k.symbol], launches_per_pair=counts[k.symbol] / N_PAIRS_2K,
+        launches_per_pair_by_phase={p: c[k.symbol] / n for p, (c, n) in by_phase.items()},
+        launches_per_batch_by_phase={p: per_batch[p][k.symbol] for p in lm_batches})
+        for k in LM_LAUNCHED]
+    print(json.dumps({"kernels": rows, "lm_kernels": lm_kernels, "lm_trips": lm_rows}),
+          flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

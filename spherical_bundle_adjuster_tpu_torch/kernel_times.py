@@ -7,6 +7,7 @@ shapes, or its global solves, for this tree or another checkout of the port.
     python spherical_bundle_adjuster_tpu_torch/kernel_times.py --save-solves P.pt
     python spherical_bundle_adjuster_tpu_torch/kernel_times.py --solves P.pt [--tree DIR] [--label NAME]
         [--against DIR2]
+    python spherical_bundle_adjuster_tpu_torch/kernel_times.py --lm [--tree DIR] [--label NAME]
 
 `--tree` imports spherical_bundle_adjuster_tpu_torch from DIR instead of
 this checkout (for example an older commit unpacked with `git archive`),
@@ -38,6 +39,15 @@ One line per problem and version: the median of 3 solves (8 with
 `--against`) after a warm-up (CUDA events around the call, the host in
 the loop), the median of their process CPU times (`host_cpu_ms`), the
 final cost and a digest of the solved poses, landmarks and costs.
+
+`--lm` times one trip of each LM stage (solver/lm) at the benchmark
+cells' shapes (a 2K pair's 1024 matches alone and with 4 starts, a
+64-pair batch's 512 with 1 and 4 starts), every problem active: the
+trip kernels (`trip_kernel`, ops/cuda_lm) and the trip op by op
+(`trip_ops`, lm._trip). Each kernel line carries the bytes the trip must
+move (`bytes`, each input read once and each output written once) and
+its bound at 3.35 TB/s (`bound_ms`). It times a tree with the trip
+kernels only.
 """
 
 from __future__ import annotations
@@ -182,6 +192,78 @@ def time_solves(path, ports, card):
                         "card": card}), flush=True)
 
 
+LM_SHAPES = [((), 1024), ((4,), 1024), ((64,), 512), ((64, 4), 512)]
+HBM_BYTES_PER_MS = 3.35e9  # the H100's 3.35 TB/s
+
+
+def lm_trips(card, label):
+    """One line per (stage, shape, path) of `--lm`."""
+    import dataclasses
+    import json
+
+    from spherical_bundle_adjuster_tpu_torch.ops import cuda_lm
+    from spherical_bundle_adjuster_tpu_torch.solver import lm
+    from spherical_bundle_adjuster_tpu_torch.utils.config import BaConfig
+
+    dev = torch.device("cuda", 0)
+    # no stop test fires: every problem stays active through the timed trips
+    cfg = dataclasses.replace(BaConfig(), function_tolerance=0.0, lm_lambda_up=1.0)
+    for lead, m in LM_SHAPES:
+        g = torch.Generator(dev).manual_seed(0)
+        bank = lead[:1] + (1,) * (len(lead) - 1)
+        b1 = torch.nn.functional.normalize(torch.randn(bank + (m, 3), device=dev, generator=g), dim=-1)
+        b2 = torch.nn.functional.normalize(b1 + 0.05 * torch.randn(b1.shape, device=dev, generator=g),
+                                           dim=-1)
+        valid = torch.rand(lead + (m,), device=dev, generator=g) < 0.9
+        r0 = 0.1 * torch.randn(lead + (3,), device=dev, generator=g)
+        t0 = 0.3 * torch.randn(lead + (3,), device=dev, generator=g)
+        d0 = torch.ones(lead + (m, 2), device=dev)
+        for stage, (compat, x0) in (("depth", (False, d0.reshape(-1, 2))),
+                                    ("rot", (True, r0.reshape(-1, 3))),
+                                    ("tran", (False, t0.reshape(-1, 3)))):
+            pair = d0[..., 0, :] if compat else d0
+            fixed, p0 = (t0, r0) if stage == "rot" else (r0, t0)
+            kept, lower = (valid.reshape(-1), 0.0) if stage == "depth" else (None, None)
+            sys_, problem = (lm._depth_system(b1, b2, r0, t0, valid, cfg) if stage == "depth"
+                             else lm._global_system(stage == "rot", b1, b2, pair, fixed, p0,
+                                                    valid, cfg))
+            n = x0.shape[-1]
+            step = (sys_, cfg, {2: lm.smallmat.solve2, 3: lm.smallmat.solve3}[n],
+                    torch.eye(n, device=dev), lower)
+            cost, H, g_ = sys_(x0)
+            state = (x0.clone(), H, g_, cost, cost.clone(), torch.full_like(cost, cfg.lm_lambda_init),
+                     torch.zeros(cost.shape, dtype=torch.int32, device=dev),
+                     torch.zeros(cost.shape, dtype=torch.bool, device=dev))
+            own = tuple(t.clone() for t in state)
+            trips = cuda_lm.Trips(problem, own, cfg, lower, kept)
+            counts = torch.zeros(2, dtype=torch.int32, device=dev)
+            runs = {"trip_ops": lambda: lm._trip(*step, state),
+                    "trip_kernel": lambda: trips.run(counts)}
+            nbytes = _trip_bytes(problem, own, kept, trips.scratch)
+            for path, fn in runs.items():
+                dms, wms = device_ms(fn)
+                line = {"tree": label, "stage": stage, "lead": list(lead), "matches": m,
+                        "path": path, "device_ms": dms, "wall_ms": wms, "card": card}
+                if path == "trip_kernel":
+                    line.update(bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_MS)
+                print(json.dumps(line), flush=True)
+
+
+def _trip_bytes(problem, state, kept, scratch):
+    """Bytes a trip of every problem active must move: the state read and
+    written, the counts, the kept mask and the problem's constants, each
+    read once, and what passes between its launches (`scratch` and the
+    aten calls' results: j_rep^T rep; or the step, H, g and cost), written
+    once and read once."""
+    size = lambda ts: sum(t.numel() * t.element_size() for t in ts)
+    n = state[0].shape[0]
+    read = size(t for t in state if t is not state[4])  # cost_s only written
+    consts = size(t for t in problem if isinstance(t, torch.Tensor))
+    results = 4 * n * (2 if state[0].shape[1] == 2 else 3 + 9 + 3 + 1)
+    return (read + size(state) + consts + 2 * (size(scratch) + results)
+            + (0 if kept is None else kept.numel()) + 8)
+
+
 def main():
     import argparse
     import json
@@ -198,6 +280,7 @@ def main():
     ap.add_argument("--save-solves", default="", help="file to save the solver problems to")
     ap.add_argument("--solves", default="", help="time the solves saved in this file")
     ap.add_argument("--against", default="", help="with --solves: a second checkout, in turns")
+    ap.add_argument("--lm", action="store_true", help="time one LM trip of each stage")
     args = ap.parse_args()
     if args.save_solves:
         return save_solves(args.save_solves, root)
@@ -218,6 +301,8 @@ def main():
             ports.append((Path(args.against).resolve().name, load_port(Path(args.against).resolve(),
                                                              "port_against")))
         return time_solves(args.solves, ports, card)
+    if args.lm:
+        return lm_trips(card, args.label)
     dev = torch.device("cuda", 0)
     g = torch.Generator(dev).manual_seed(0)
     # the 8 bands of one 1024x2048 pair (4 pitches x 2 views), 256 x 2048

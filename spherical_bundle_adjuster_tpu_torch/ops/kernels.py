@@ -8,7 +8,8 @@ sources, so an edited source can never load a stale binary. Nothing is
 built or loaded when this module is imported: the first launch does it.
 
 Every C entry point takes pointers as c_void_p (device memory, or host
-memory it reads before it launches: host_ptr), then the device index and
+memory it reads before it launches: host_ptr; None for a null pointer),
+ints as c_int and floats as c_float, then the device index and
 PyTorch's current CUDA stream on it, selects that device, launches on
 that stream, and returns cudaGetLastError(); the caller raises on
 anything but 0.
@@ -32,11 +33,17 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C signatures: name -> argtypes (restype is int, the cudaError_t).
 SIGNATURES = {
     "sba_det_pyramid": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "sba_haar_trace": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "sba_top2": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "sba_lm_depth_point": [_P] * 14 + [_I] * 2 + [_F] + [_I, _P],
+    "sba_lm_depth_settle": [_P] * 14 + [_I] * 2 + [_F] * 6 + [_I, _P],
+    "sba_lm_global_solve": [_P] * 10 + [_I] + [_I, _P],
+    "sba_lm_global_point": [_P] * 20 + [_I] * 7 + [_F] * 3 + [_I, _P],
+    "sba_lm_global_settle": [_P] * 14 + [_I] * 2 + [_F] * 4 + [_I, _P],
 }
 
 _lib = None

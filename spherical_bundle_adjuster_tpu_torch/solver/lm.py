@@ -32,8 +32,10 @@ its trips in utils/profiling.COUNTS under the stage that runs it. The loop
 is host-driven, so it keeps the system of each accepted trial point
 instead of rebuilding it at the top of the next iteration (the reference
 re-evaluates it; the values are the same). On the CPU each trip is one
-small op after another; on the card every trip after the first replays
-one CUDA graph of the trip's ops.
+small op after another (`_trip`); on the card each stage's trip, and its
+initial system, runs as hand-written CUDA kernels (ops/cuda_lm,
+csrc/lm_trip.cu) around the trip's own aten products and sums, bit for
+bit the trip op by op.
 """
 
 from __future__ import annotations
@@ -45,24 +47,28 @@ from typing import NamedTuple
 import torch
 
 from ..core import rotation, smallmat
+from ..ops import cuda_lm
 from ..utils import profiling
 from ..utils.config import BaConfig
 
 _COUNTING = ("other", None)  # (stage, kept): what lm_fixed counts its trips under
+_PROBLEM = None  # the stage's problem for the trip kernels (ops/cuda_lm), or None
 
 
 @contextmanager
-def _counting(stage, kept=None):
+def _counting(stage, kept=None, problem=None):
     """lm_fixed's loop trips inside count under lm.<stage>; `kept` (N,)
-    marks the problems whose result the stage keeps (None: every one).
-    A context and not arguments of lm_fixed, whose signature
+    marks the problems whose result the stage keeps (None: every one);
+    `problem` (a cuda_lm DepthProblem or GlobalProblem) describes them to
+    the trip kernels, which run the loop on CUDA float32 tensors. A
+    context and not arguments of lm_fixed, whose signature
     benchmark/tests/test_bench_faults.py stubs."""
-    global _COUNTING
-    outer, _COUNTING = _COUNTING, (stage, kept)
+    global _COUNTING, _PROBLEM
+    outer, _COUNTING, _PROBLEM = (_COUNTING, _PROBLEM), (stage, kept), problem
     try:
         yield
     finally:
-        _COUNTING = outer
+        _COUNTING, _PROBLEM = outer
 
 
 def reprojection_residual(b1, b2, d1, d2, r, t):
@@ -113,40 +119,51 @@ def lm_fixed(cost_and_system, x0, cfg: BaConfig, max_iters=None, lower_bound=Non
     host sync, and adds to profiling.COUNTS under the stage:
     lm.<stage>.syncs 1, .active the kept ones, .slots N.
 
-    On CUDA tensors, once a problem is still active after the first trip,
-    the loop captures one trip as a CUDA graph (lm.graphs +1) and replays
-    it for every later trip (lm.<stage>.graph_trips +1 a replay): one
-    launch in place of a trip's hundred or more small ops, the same
-    kernels on the same buffers, the same host read a trip.
+    On CUDA float32 tensors of a stage that described its problem
+    (_counting), the initial system and every trip run as the stage's
+    trip kernels (ops/cuda_lm.Trips: two or three launches around the
+    trip's one to three aten products and sums), which update the loop's
+    state in place, bit for bit as `_trip` would, and add the next read's
+    counts (lm.<stage>.kernel_trips +1 a trip); cost_and_system is then
+    not called. Anything else runs each trip op by op (`_trip`).
     """
-    return _loop(cost_and_system, x0, cfg, max_iters, lower_bound, graphed=x0.is_cuda)
+    return _loop(cost_and_system, x0, cfg, max_iters, lower_bound, eager=False)
 
 
 def _lm_eager(cost_and_system, x0, cfg: BaConfig, max_iters=None, lower_bound=None):
     """lm_fixed with every trip run op by op, on any device."""
-    return _loop(cost_and_system, x0, cfg, max_iters, lower_bound, graphed=False)
+    return _loop(cost_and_system, x0, cfg, max_iters, lower_bound, eager=True)
 
 
-def _loop(cost_and_system, x0, cfg, max_iters, lower_bound, graphed):
-    n = x0.shape[-1]
+def _loop(cost_and_system, x0, cfg, max_iters, lower_bound, eager):
     iters = cfg.max_iterations if max_iters is None else max_iters
-    small_solve = {2: smallmat.solve2, 3: smallmat.solve3}[n]
-    eye = torch.eye(n, dtype=x0.dtype, device=x0.device)
-    step = functools.partial(_trip, cost_and_system, cfg, small_solve, eye, lower_bound)
-
-    cost, H, g = cost_and_system(x0)
-    init_cost = cost
-    lam = torch.full_like(cost, cfg.lm_lambda_init)
-    it = torch.zeros(cost.shape, dtype=torch.int32, device=x0.device)
-    done = torch.zeros(cost.shape, dtype=torch.bool, device=x0.device)
-    state = (x0, H, g, cost, cost, lam, it, done)
-    counts, slots = profiling.COUNTS, x0.shape[0]
     stage, kept = _COUNTING
+    problem = _PROBLEM
+    on_card = not eager and problem is not None and x0.is_cuda and x0.dtype == torch.float32
+    if on_card:
+        # row k: the counts the host reads before trip k
+        table = torch.zeros((iters + 1, 2), dtype=torch.int32, device=x0.device)
+        kept = None if kept is None else kept.contiguous()
+        trips = cuda_lm.start(problem, x0.contiguous(), cfg, lower_bound, kept, table[0])
+        state = trips.state
+        init_cost = state[3].clone()
+        n_left = table[0]
+    else:
+        n = x0.shape[-1]
+        small_solve = {2: smallmat.solve2, 3: smallmat.solve3}[n]
+        eye = torch.eye(n, dtype=x0.dtype, device=x0.device)
+        step = functools.partial(_trip, cost_and_system, cfg, small_solve, eye, lower_bound)
+        cost, H, g = cost_and_system(x0)
+        init_cost = cost
+        lam = torch.full_like(cost, cfg.lm_lambda_init)
+        it = torch.zeros(cost.shape, dtype=torch.int32, device=x0.device)
+        done = torch.zeros(cost.shape, dtype=torch.bool, device=x0.device)
+        state = (x0, H, g, cost, cost, lam, it, done)
+        every = torch.ones_like(done)
+        kept = torch.stack([every, every if kept is None else kept])  # (2, N)
+        n_left = _active(done, kept)
+    counts, slots = profiling.COUNTS, x0.shape[0]
     key = f"lm.{stage}."
-    every = torch.ones_like(done)
-    kept = torch.stack([every, every if kept is None else kept])  # (2, N)
-    n_left = _active(done, kept)
-    graph = None
     for trip in range(iters):
         n_active, n_kept = n_left.tolist()
         counts[key + "syncs"] += 1
@@ -154,12 +171,10 @@ def _loop(cost_and_system, x0, cfg, max_iters, lower_bound, graphed):
         counts[key + "slots"] += slots
         if n_active == 0:
             break
-        if graphed and trip > 0:  # every buffer of `state` is the loop's own from here
-            if graph is None:
-                graph = _capture(step, state, kept, n_left)
-                counts["lm.graphs"] += 1
-            graph.replay()
-            counts[key + "graph_trips"] += 1
+        if on_card:
+            n_left = table[trip + 1]
+            trips.run(n_left)
+            counts[key + "kernel_trips"] += 1
         else:
             state = step(state)
             n_left = _active(state[-1], kept)
@@ -167,15 +182,16 @@ def _loop(cost_and_system, x0, cfg, max_iters, lower_bound, graphed):
     return x, StageReport(it, init_cost, cost_s)
 
 
-def _active(done, kept, out=None):
+def _active(done, kept):
     """(2,) the problems still active: every one, the ones kept."""
-    return torch.sum(~done & kept, dim=-1, out=out)
+    return torch.sum(~done & kept, dim=-1)
 
 
 def _trip(cost_and_system, cfg, small_solve, eye, lower_bound, state):
     """One trip of the loop after its host read, out of place: the damped
     solve, the clamp, the trial point's system and the accept/reject
-    updates of state = (x, H, g, cost, cost_s, lam, it, done)."""
+    updates of state = (x, H, g, cost, cost_s, lam, it, done). The plain
+    version of ops/cuda_lm's Trips.run."""
     x, H, g, cost, cost_s, lam, it, done = state
     active = ~done
     diag = torch.diagonal(H, dim1=-2, dim2=-1)
@@ -201,79 +217,21 @@ def _trip(cost_and_system, cfg, small_solve, eye, lower_bound, state):
             done | (active & (converged | stuck)))
 
 
-def _capture(step, state, kept, n_left):
-    """A CUDA graph of one trip: `step` on `state`, its result copied back
-    into `state`, and the next trip's counts into `n_left`, all in place,
-    so that each replay runs one trip on the same buffers. Captured on
-    the device's capture stream into its pool (_capture_pool); the graph
-    and what it holds of the pool go when the caller drops it."""
-    dev = n_left.device
-    side, pool = _capture_pool(dev)
-    side.wait_stream(torch.cuda.current_stream(dev))
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.stream(side):
-        graph.capture_begin(pool=pool, capture_error_mode="thread_local")
-        try:
-            for buf, new in zip(state, step(state)):
-                buf.copy_(new)
-            _active(state[-1], kept, out=n_left)
-        finally:
-            graph.capture_end()
-    torch.cuda.current_stream(dev).wait_stream(side)
-    return graph
-
-
-_POOLS = {}  # device index -> (capture stream, pool id, the graph that holds the pool open)
-
-
-def _capture_pool(dev):
-    """The stream and memory pool that every trip graph on `dev` is
-    captured on, made at the device's first capture and kept for the
-    process: each capture reuses the blocks the last one freed, where a
-    fresh pool a call would keep its memory reserved until the
-    allocator's cache is emptied. A one-op graph captured first holds the
-    pool open between captures: torch's allocators assert
-    (`it->second->use_count > 0`) when a capture reuses a pool that every
-    graph has left, the device allocator where nothing holds the pool and
-    the pinned-memory allocator, which counts a pool's graphs on its own,
-    where only a torch.cuda.MemPool does."""
-    idx = dev.index if dev.index is not None else torch.cuda.current_device()
-    if idx not in _POOLS:
-        side = torch.cuda.Stream(idx)
-        side.wait_stream(torch.cuda.current_stream(idx))
-        cell = torch.zeros(1, device=dev)
-        holder = torch.cuda.CUDAGraph()
-        with torch.cuda.stream(side):
-            holder.capture_begin(capture_error_mode="thread_local")
-            cell.add_(1)
-            holder.capture_end()
-        _POOLS[idx] = side, holder.pool(), (holder, cell)
-    side, pool, _ = _POOLS[idx]
-    return side, pool
-
-
 # ---------------------------------------------------------------------------
 # Stage: depths (d-only), one 2x2 problem per match
 
 
-@profiling.spanned("sba.lm.depth")
-def solve_depths(b1, b2, d_init, r, t, match_valid, cfg: BaConfig):
-    """Optimize per-match (d1, d2) with fixed (r, t).
-
-    Residual is 5-dim: 3 reprojection + 2 barrier terms lambda*exp(-c*d_i),
-    no robust loss, bound d >= 0. b1, b2: (..., M, 3), broadcasting
-    against d_init (..., M, 2); r, t: (..., 3); match_valid: (..., M).
-    Returns ((..., M, 2), StageReport) with, per start, iterations = max
-    over valid matches and costs summed over valid matches.
-    """
+def _depth_system(b1, b2, r, t, match_valid, cfg: BaConfig):
+    """solve_depths' P*S*M problems, one a (start, match) slot: their
+    cost_and_system and their description for the trip kernels."""
     lam_b = cfg.barrier_lambda
     c_b = cfg.barrier_c
     lead, m = match_valid.shape[:-1], match_valid.shape[-1]
     # one 2x2 problem per (start, match): per-problem bearings and pose
-    bb1 = b1.expand(lead + b1.shape[-2:]).reshape(-1, 3)
-    bb2 = b2.expand(lead + b2.shape[-2:]).reshape(-1, 3)
-    rr = r[..., None, :].expand(lead + (m, 3)).reshape(-1, 3)
-    tt = t[..., None, :].expand(lead + (m, 3)).reshape(-1, 3)
+    bb1 = b1.expand(lead + b1.shape[-2:]).reshape(-1, 3).contiguous()
+    bb2 = b2.expand(lead + b2.shape[-2:]).reshape(-1, 3).contiguous()
+    rr = r[..., None, :].expand(lead + (m, 3)).reshape(-1, 3).contiguous()
+    tt = t[..., None, :].expand(lead + (m, 3)).reshape(-1, 3).contiguous()
     # The residual is linear in each depth: d rep / d (d1, d2) = [-R b1, b2],
     # a constant (N, 3, 2) block, so its share of J^T J is built once; the
     # barrier rows add a diagonal.
@@ -289,7 +247,21 @@ def solve_depths(b1, b2, d_init, r, t, match_valid, cfg: BaConfig):
         cost = 0.5 * (torch.sum(rep * rep, dim=-1) + torch.sum(bar * bar, dim=-1))
         return cost, H, g
 
-    with _counting("depth", match_valid.reshape(-1)):  # padded and invalid slots are dropped
+    return sys, cuda_lm.DepthProblem(bb1, bb2, rr, tt, j_rep, h_rep, lam_b, c_b)
+
+
+@profiling.spanned("sba.lm.depth")
+def solve_depths(b1, b2, d_init, r, t, match_valid, cfg: BaConfig):
+    """Optimize per-match (d1, d2) with fixed (r, t).
+
+    Residual is 5-dim: 3 reprojection + 2 barrier terms lambda*exp(-c*d_i),
+    no robust loss, bound d >= 0. b1, b2: (..., M, 3), broadcasting
+    against d_init (..., M, 2); r, t: (..., 3); match_valid: (..., M).
+    Returns ((..., M, 2), StageReport) with, per start, iterations = max
+    over valid matches and costs summed over valid matches.
+    """
+    sys, problem = _depth_system(b1, b2, r, t, match_valid, cfg)
+    with _counting("depth", match_valid.reshape(-1), problem):  # padded and invalid slots are dropped
         d_opt, reps = lm_fixed(sys, d_init.reshape(-1, 2), cfg, lower_bound=cfg.d_lower_bound)
     d_out = torch.where(match_valid[..., None], d_opt.reshape(d_init.shape), d_init)
     w = match_valid.to(torch.float32)
@@ -305,12 +277,28 @@ def solve_depths(b1, b2, d_init, r, t, match_valid, cfg: BaConfig):
 # Stages: rotation-only / translation-only (3 global params, Huber IRLS)
 
 
-def _global_stage(stage, param0, residual_and_jacobian, match_valid, cfg: BaConfig):
-    """LM over a 3-vector per start with per-match Huber-weighted
-    3-residual blocks, its trips counted under `stage`. param0: (..., 3);
-    residual_and_jacobian(p (..., 3)) -> (res (..., M, 3), J (..., M, 3, 3))."""
+def _global_system(rotation_stage, b1, b2, d_pair, fixed, param0, match_valid, cfg: BaConfig):
+    """The rotation (rotation_stage) or translation stage's problems, one a
+    start: their cost_and_system over a 3-vector p (N, 3), with per-match
+    Huber-weighted 3-residual blocks, and their description for the trip
+    kernels. `fixed` is the pose part the stage holds, t or r; param0
+    (..., 3) sets the problems' leading axes."""
     w_valid = match_valid.to(torch.float32)
-    lead = param0.shape[:-1]
+    lead, m = param0.shape[:-1], match_valid.shape[-1]
+    d1, d2 = _depth_columns(d_pair, match_valid)
+    fixed_ = fixed[..., None, :]
+    eye = None
+    if rotation_stage:
+        x1 = b1 * d1[..., None]
+
+        def residual_and_jacobian(r):
+            res = reprojection_residual(b1, b2, d1, d2, r[..., None, :], fixed_)
+            return res, rotation.rotation_jacobian(r, x1)
+    else:
+        eye = torch.eye(3, dtype=b1.dtype, device=b1.device).expand(match_valid.shape + (3, 3))
+
+        def residual_and_jacobian(t):
+            return reprojection_residual(b1, b2, d1, d2, fixed_, t[..., None, :]), eye
 
     def sys(p):
         res, J = residual_and_jacobian(p.reshape(param0.shape))
@@ -321,9 +309,33 @@ def _global_stage(stage, param0, residual_and_jacobian, match_valid, cfg: BaConf
         cost = huber_cost(res, cfg.huber_delta, w_valid)
         return cost.reshape(-1), H.reshape(-1, 3, 3), g.reshape(-1, 3)
 
-    with _counting(stage):
+    pair = d_pair.ndim == match_valid.ndim  # reference-compat: one (d1, d2) for every match
+    d = d_pair.expand(lead + ((2,) if pair else (m, 2)))
+    problem = cuda_lm.GlobalProblem(
+        rotation_stage, _bank(b1, lead), _bank(b2, lead),
+        d.reshape((-1,) + d.shape[len(lead):]).contiguous(),
+        match_valid.expand(lead + (m,)).reshape(-1, m).contiguous(),
+        fixed.expand(lead + (3,)).reshape(-1, 3).contiguous(), cfg.huber_delta, lead, eye)
+    return sys, problem
+
+
+def _bank(b, lead):
+    """A bearing bank (..., M, 3) that broadcasts against the problems'
+    leading axes `lead`, as the fewest rows (B, M, 3) that problem n reads
+    as row n // (N // B): the trailing leading axes it is shared along
+    are left out."""
+    full = b.expand(lead + b.shape[-2:])
+    j = len(lead)
+    while j and (full.stride(j - 1) == 0 or full.shape[j - 1] == 1):
+        j -= 1
+    return full[(slice(None),) * j + (0,) * (len(lead) - j)].reshape(-1, *b.shape[-2:]).contiguous()
+
+
+def _global_stage(stage, sys, problem, param0, cfg: BaConfig):
+    """LM over a 3-vector per start, its trips counted under `stage`."""
+    with _counting(stage, problem=problem):
         x, rep = lm_fixed(sys, param0.reshape(-1, 3), cfg)
-    return x.reshape(param0.shape), StageReport(*(f.reshape(lead) for f in rep))
+    return x.reshape(param0.shape), StageReport(*(f.reshape(param0.shape[:-1]) for f in rep))
 
 
 def _depth_columns(d_pair, match_valid):
@@ -341,29 +353,16 @@ def solve_rotation(b1, b2, d_pair, r0, t, match_valid, cfg: BaConfig):
     """Rotation-only stage. d_pair: the (..., 2) pair (d1, d2) used for
     EVERY residual (reference-compat quirk) or per-match depths
     (..., M, 2)."""
-    d1, d2 = _depth_columns(d_pair, match_valid)
-    x1 = b1 * d1[..., None]
-    t_ = t[..., None, :]
-
-    def residual_and_jacobian(r):
-        res = reprojection_residual(b1, b2, d1, d2, r[..., None, :], t_)
-        return res, rotation.rotation_jacobian(r, x1)
-
-    return _global_stage("rot", r0, residual_and_jacobian, match_valid, cfg)
+    sys, problem = _global_system(True, b1, b2, d_pair, t, r0, match_valid, cfg)
+    return _global_stage("rot", sys, problem, r0, cfg)
 
 
 @profiling.spanned("sba.lm.tran")
 def solve_translation(b1, b2, d_pair, r, t0, match_valid, cfg: BaConfig):
     """Translation-only stage (same depth semantics as solve_rotation);
     the residual is linear in t with Jacobian I."""
-    d1, d2 = _depth_columns(d_pair, match_valid)
-    r_ = r[..., None, :]
-    eye = torch.eye(3, dtype=b1.dtype, device=b1.device).expand(match_valid.shape + (3, 3))
-
-    def residual_and_jacobian(t):
-        return reprojection_residual(b1, b2, d1, d2, r_, t[..., None, :]), eye
-
-    return _global_stage("tran", t0, residual_and_jacobian, match_valid, cfg)
+    sys, problem = _global_system(False, b1, b2, d_pair, r, t0, match_valid, cfg)
+    return _global_stage("tran", sys, problem, t0, cfg)
 
 
 # ---------------------------------------------------------------------------

@@ -19,11 +19,9 @@ The two-view path is instrumented with spans and counters of its own:
     problems still running at each trip whose result the stage keeps (a
     depth stage drops its padded and invalid match slots);
     `lm.<stage>.slots`, the problems of the batch at each trip;
-    `lm.<stage>.graph_trips`, the trips run as the replay of a CUDA graph
-    (on the card, every trip after a loop's first), and `lm.graphs`, the
-    graphs captured (one a loop that runs more than one trip on the
-    card). `LAST_CALL` holds what the newest call of a two-view entry
-    added to them.
+    `lm.<stage>.kernel_trips`, the trips run through the trip kernels
+    (ops/cuda_lm; on the card, every trip). `LAST_CALL` holds what
+    the newest call of a two-view entry added to them.
 """
 
 from __future__ import annotations
