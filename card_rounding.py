@@ -4,9 +4,9 @@
 
 Prints one JSON line per reading:
 
-  batch_vs_single: the batch of chip_smoke.py's batch_512x1024 phase
-    (compat, 512x1024, the 16 distinct pairs tiled to 64, the same
-    draws; its first N pairs with --pairs) through run_two_view_batch,
+  batch_vs_single: the 64-pair batch of the bench's headline point
+    (compat, 512x1024, problems.py's 16 distinct pairs tiled to 64, the
+    same draws; its first N pairs with --pairs) through run_two_view_batch,
     each pair against run_two_view on that pair with its draw row and
     against run_two_view_batch on that pair alone (P = 1): whether the
     match lists are identical, and the gaps (deg) between the consensus
@@ -25,8 +25,9 @@ Prints one JSON line per reading:
     samples whose floor pixel differs with the faces' coordinates in
     float32 and, as the port computes them, in float64.
 
-Run from the repository root (it reuses chip_smoke.py's pairs and
-configs). Needs one card; it builds the kernels as chip_smoke.py does.
+Run from the repository root (it reuses the pairs and configs of
+spherical_bundle_adjuster_tpu_torch/problems.py). Needs one card; it
+builds the kernels with ops/kernels.build.
 """
 
 from __future__ import annotations
@@ -41,7 +42,7 @@ import numpy as np
 import torch
 from torch.overrides import TorchFunctionMode
 
-import chip_smoke as smoke
+from spherical_bundle_adjuster_tpu_torch import problems
 from spherical_bundle_adjuster_tpu_torch.core import cube, sphere
 from spherical_bundle_adjuster_tpu_torch.models import frontend, twoview
 from spherical_bundle_adjuster_tpu_torch.ops import integral, kernels, warp
@@ -105,30 +106,31 @@ def first_divergence(batch_ops, single_ops, i, n_pairs):
 
 
 def rot_gap_deg(aa_a, aa_b):
-    return smoke.rot_err_deg_host(aa_a.cpu().numpy(), smoke.angle_axis_matrix(aa_b.cpu().numpy()))
+    return problems.rot_err_deg_host(aa_a.cpu().numpy(),
+                                     problems.angle_axis_matrix(aa_b.cpu().numpy()))
 
 
 def euler_gap_deg(e_a, e_b):
-    return rot_gap_deg(torch.as_tensor(smoke.angle_axis_of(e_a)),
-                       torch.as_tensor(smoke.angle_axis_of(e_b)))
+    return rot_gap_deg(torch.as_tensor(problems.angle_axis_of(e_a)),
+                       torch.as_tensor(problems.angle_axis_of(e_b)))
 
 
 def batch_vs_single(dev, n_pairs):
-    h, w = smoke.SIZE_512
-    cfg = smoke.CFG_512
-    pairs = [smoke.make_pair(i, h, w, dev) for i in range(smoke.N_DISTINCT)]
-    reps = -(-smoke.N_BATCH // smoke.N_DISTINCT)
-    lefts, rights = (x.repeat(reps, 1, 1, 1)[:n_pairs] for x in smoke.stacked(pairs))
-    gumbel = smoke.draws(cfg, smoke.N_BATCH, dev)[:n_pairs]
+    h, w = problems.SIZE_512
+    cfg = problems.CFG_512
+    pairs = [problems.make_pair(i, h, w, dev) for i in range(problems.N_DISTINCT)]
+    reps = -(-problems.N_BATCH // problems.N_DISTINCT)
+    lefts, rights = (x.repeat(reps, 1, 1, 1)[:n_pairs] for x in problems.stacked(pairs))
+    gumbel = problems.draws(cfg, problems.N_BATCH, dev)[:n_pairs]
     out = twoview.run_two_view_batch(lefts, rights, None, cfg, gumbel=gumbel)
     rows = []
     for i in range(n_pairs):
         one = twoview.run_two_view(lefts[i], rights[i], None, cfg, gumbel=gumbel[i])
         p1 = twoview.run_two_view_batch(lefts[i:i + 1], rights[i:i + 1], None, cfg,
                                         gumbel=gumbel[i:i + 1])
-        row = smoke.pair_of(out, i)
+        row = problems.pair_of(out, i)
         rows.append(dict(
-            same_matches=smoke.same_matches(one, row),
+            same_matches=problems.same_matches(one, row),
             init_gap_deg=euler_gap_deg(one.initial_euler, row.initial_euler),
             rot_gap_deg=rot_gap_deg(one.rotation_aa, row.rotation_aa),
             p1_init_gap_deg=euler_gap_deg(p1.initial_euler[0], row.initial_euler),
@@ -146,8 +148,8 @@ def batch_vs_single(dev, n_pairs):
 
 def op_trace(out, gumbel, dev):
     """The first differing call of the consensus stage and of the BCD."""
-    h, w = smoke.SIZE_512
-    cfg = smoke.CFG_512
+    h, w = problems.SIZE_512
+    cfg = problems.CFG_512
     n = out.match_valid.shape[0]
     fr = frontend.FrontendResult(out.left_xy, out.right_xy, out.match_valid,
                                  out.match_distance, out.total_keypoints)
@@ -183,12 +185,12 @@ def op_trace(out, gumbel, dev):
 
 
 def warps(dev):
-    h, w = smoke.SIZE_2K
-    cfg = smoke.CFG_2K
-    left, right, _ = smoke.make_pair(0, h, w, dev)
+    h, w = problems.SIZE_2K
+    cfg = problems.CFG_2K
+    left, right, _ = problems.make_pair(0, h, w, dev)
 
     def coords32(device):
-        rays = cube.face_rays(smoke.CUBE_2K, device=device)
+        rays = cube.face_rays(problems.CUBE_2K, device=device)
         v = rays / torch.linalg.vector_norm(rays, dim=-1, keepdim=True)
         return sphere.spherical_to_pixel(sphere.cartesian_to_spherical(v), w, h)
 
@@ -202,20 +204,20 @@ def warps(dev):
                band_pixels_changed=int((bands[0] != bands[1]).sum()))
     gray = integral.rgb_to_gray(left)
     for name, fn in (("float32", coords32),
-                     ("float64", lambda d: warp._face_coords(smoke.CUBE_2K, w, h, d))):
+                     ("float64", lambda d: warp._face_coords(problems.CUBE_2K, w, h, d))):
         a, b = fn(gray.device), fn(torch.device("cpu"))
         out[f"cube_samples_flipped_{name}"] = int((pixel(a) != pixel(b)).any(-1).sum())
     strips = [warp.resample(g, coords32(g.device)).cpu() for g in (gray, gray.cpu())]
-    out["cube_samples"] = 6 * smoke.CUBE_2K ** 2
+    out["cube_samples"] = 6 * problems.CUBE_2K ** 2
     out["cube_strip_pixels_changed_float32"] = int((strips[0] != strips[1]).sum())
     print(json.dumps(out), flush=True)
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--pairs", type=int, default=smoke.N_BATCH)
+    ap.add_argument("--pairs", type=int, default=problems.N_BATCH)
     args = ap.parse_args()
-    dev, smi = smoke.phase_device()
+    dev, smi = problems.phase_device()
     kernels.build()
     torch.set_num_threads(os.cpu_count() or 1)
     out, gumbel = batch_vs_single(dev, args.pairs)

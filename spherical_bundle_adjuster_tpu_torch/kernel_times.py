@@ -11,7 +11,9 @@ shapes, or its global solves, for this tree or another checkout of the port.
 
 `--tree` imports spherical_bundle_adjuster_tpu_torch from DIR instead of
 this checkout (for example an older commit unpacked with `git archive`),
-so two versions of the kernels are timed by the same code. Each line of
+so two versions of the kernels are timed on the same inputs. DIR's
+utils/profiling supplies the timer (device_ms) and its problems.py the
+problems of `--lm` and `--save-solves`, so DIR must hold both. Each line of
 output is one JSON object: the kernel, its device time per call
 (`device_ms`: CUDA events around back-to-back calls queued behind a GPU
 spin, so host overhead does not count), its wall time per call with the
@@ -29,9 +31,8 @@ one query tile alone (`top2_one_tile`: 128 queries, one block per SM)
 and K3 built without the merge of the blocks' top-2 (SBA_NO_MERGE).
 Those lines carry the budget and the variant.
 
-`--save-solves` builds chip_smoke.py's solver and tracks problems with
-this tree (on the CPU; the tracks problems need this tree's
-models/tracks) and saves them. `--solves` loads them and times each
+`--save-solves` builds the solver and tracks problems of problems.py
+with the tree (on the CPU) and saves them. `--solves` loads them and times each
 with DIR's solve_multiview or optimize_pose_graph instead of the
 kernels; `--against DIR2` times DIR2's too, in the same process, the
 two versions' solves in turns, so that both see the same host load.
@@ -40,9 +41,11 @@ One line per problem and version: the median of 3 solves (8 with
 the loop), the median of their process CPU times (`host_cpu_ms`), the
 final cost and a digest of the solved poses, landmarks and costs.
 
-`--lm` times one trip of each LM stage (solver/lm) at the benchmark
-cells' shapes (a 2K pair's 1024 matches alone and with 4 starts, a
-64-pair batch's 512 with 1 and 4 starts), every problem active: the
+`--lm` times one trip of each LM stage (solver/lm), in compat and
+corrected mode, at the benchmark cells' shapes (problems.LM_SHAPES: a
+2K pair's 1024 matches alone and with 4 starts, a 64-pair batch's 512
+with 1 and 4 starts) on the tests' stage problem
+(problems.stage_problem), from its start with every problem active: the
 trip kernels (`trip_kernel`, ops/cuda_lm) and the trip op by op
 (`trip_ops`, lm._trip). Each kernel line carries the bytes the trip must
 move (`bytes`, each input read once and each output written once) and
@@ -56,37 +59,6 @@ import hashlib
 import time
 
 import torch
-
-SPIN_PROBE_CYCLES = 10**7
-
-
-def device_ms(fn, iters=20, warmup=3):
-    """Mean device time of fn() in ms, and its mean wall time per call.
-
-    The calls are queued behind torch.cuda._sleep, sized to outlast the
-    host's queueing, so the events between them time the kernels back to
-    back rather than the host's launch rate."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) * 1e3 / iters
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    torch.cuda._sleep(SPIN_PROBE_CYCLES)
-    end.record()
-    torch.cuda.synchronize()
-    cycles_per_ms = SPIN_PROBE_CYCLES / start.elapsed_time(end)
-    torch.cuda._sleep(int(cycles_per_ms * (2.0 * wall * iters + 5.0)))
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters, wall
 
 
 def digest(out):
@@ -105,29 +77,26 @@ def digest(out):
     return h.hexdigest()[:16]
 
 
-def save_solves(path, root):
-    """chip_smoke.py's solver and tracks problems, built with the tree at
-    root on the CPU: {name: (kind, fields, solve keywords)}."""
-    import sys
-
-    sys.path.insert(0, str(root))
-    import chip_smoke as smoke
+def save_solves(path):
+    """The solver and tracks problems of problems.py, built on the CPU:
+    {name: (kind, fields, solve keywords)}."""
+    from spherical_bundle_adjuster_tpu_torch import problems
     from spherical_bundle_adjuster_tpu_torch.models import multiview, tracks
     from spherical_bundle_adjuster_tpu_torch.solver import pose_graph
 
     out = {}
-    for name, C, L, P, noise, seed, kw in smoke.MULTIVIEW_PHASES:
-        fields, _ = smoke.synth_multiview(C, L, P, noise, seed)
+    for name, C, L, P, noise, seed, kw in problems.MULTIVIEW_PHASES:
+        fields, _ = problems.synth_multiview(C, L, P, noise, seed)
         out[name] = ("multiview", list(multiview.problem_from_numpy(fields, "cpu")), kw)
-    for name, n, k, seed, kw in smoke.POSE_GRAPH_PHASES:
-        fields, _ = smoke.synth_pose_graph(n, k, seed)
+    for name, n, k, seed, kw in problems.POSE_GRAPH_PHASES:
+        fields, _ = problems.synth_pose_graph(n, k, seed)
         out[name] = ("pose_graph", list(pose_graph.graph_from_numpy(fields, "cpu")), kw)
-    for name, C, n_lm, slots, stride, kw in smoke.TRACKS_PHASES:
-        fields, _ = smoke.synth_tracks(C, n_lm, smoke.TRACKS_SEED, window=slots, stride=stride,
-                                       slots=slots)
+    for name, C, n_lm, slots, stride, kw in problems.TRACKS_PHASES:
+        fields, _ = problems.synth_tracks(C, n_lm, problems.TRACKS_SEED, window=slots,
+                                          stride=stride, slots=slots)
         prob = tracks.build_multiview_problem(*(torch.as_tensor(a) for a in fields),
-                                              smoke.TRACKS_W, smoke.TRACKS_H,
-                                              max_obs_per_track=smoke.TRACKS_P)
+                                              problems.TRACKS_W, problems.TRACKS_H,
+                                              max_obs_per_track=problems.TRACKS_P)
         out[name] = ("multiview", list(prob), kw)
     torch.save(out, path)
 
@@ -192,61 +161,41 @@ def time_solves(path, ports, card):
                         "card": card}), flush=True)
 
 
-LM_SHAPES = [((), 1024), ((4,), 1024), ((64,), 512), ((64, 4), 512)]
 HBM_BYTES_PER_MS = 3.35e9  # the H100's 3.35 TB/s
 
 
 def lm_trips(card, label):
-    """One line per (stage, shape, path) of `--lm`."""
+    """One line per (shape, mode, stage, path) of `--lm`."""
     import dataclasses
     import json
 
+    from spherical_bundle_adjuster_tpu_torch import problems
     from spherical_bundle_adjuster_tpu_torch.ops import cuda_lm
-    from spherical_bundle_adjuster_tpu_torch.solver import lm
     from spherical_bundle_adjuster_tpu_torch.utils.config import BaConfig
+    from spherical_bundle_adjuster_tpu_torch.utils.profiling import device_ms
 
     dev = torch.device("cuda", 0)
     # no stop test fires: every problem stays active through the timed trips
     cfg = dataclasses.replace(BaConfig(), function_tolerance=0.0, lm_lambda_up=1.0)
-    for lead, m in LM_SHAPES:
-        g = torch.Generator(dev).manual_seed(0)
-        bank = lead[:1] + (1,) * (len(lead) - 1)
-        b1 = torch.nn.functional.normalize(torch.randn(bank + (m, 3), device=dev, generator=g), dim=-1)
-        b2 = torch.nn.functional.normalize(b1 + 0.05 * torch.randn(b1.shape, device=dev, generator=g),
-                                           dim=-1)
-        valid = torch.rand(lead + (m,), device=dev, generator=g) < 0.9
-        r0 = 0.1 * torch.randn(lead + (3,), device=dev, generator=g)
-        t0 = 0.3 * torch.randn(lead + (3,), device=dev, generator=g)
-        d0 = torch.ones(lead + (m, 2), device=dev)
-        for stage, (compat, x0) in (("depth", (False, d0.reshape(-1, 2))),
-                                    ("rot", (True, r0.reshape(-1, 3))),
-                                    ("tran", (False, t0.reshape(-1, 3)))):
-            pair = d0[..., 0, :] if compat else d0
-            fixed, p0 = (t0, r0) if stage == "rot" else (r0, t0)
-            kept, lower = (valid.reshape(-1), 0.0) if stage == "depth" else (None, None)
-            sys_, problem = (lm._depth_system(b1, b2, r0, t0, valid, cfg) if stage == "depth"
-                             else lm._global_system(stage == "rot", b1, b2, pair, fixed, p0,
-                                                    valid, cfg))
-            n = x0.shape[-1]
-            step = (sys_, cfg, {2: lm.smallmat.solve2, 3: lm.smallmat.solve3}[n],
-                    torch.eye(n, device=dev), lower)
-            cost, H, g_ = sys_(x0)
-            state = (x0.clone(), H, g_, cost, cost.clone(), torch.full_like(cost, cfg.lm_lambda_init),
-                     torch.zeros(cost.shape, dtype=torch.int32, device=dev),
-                     torch.zeros(cost.shape, dtype=torch.bool, device=dev))
-            own = tuple(t.clone() for t in state)
-            trips = cuda_lm.Trips(problem, own, cfg, lower, kept)
-            counts = torch.zeros(2, dtype=torch.int32, device=dev)
-            runs = {"trip_ops": lambda: lm._trip(*step, state),
-                    "trip_kernel": lambda: trips.run(counts)}
-            nbytes = _trip_bytes(problem, own, kept, trips.scratch)
-            for path, fn in runs.items():
-                dms, wms = device_ms(fn)
-                line = {"tree": label, "stage": stage, "lead": list(lead), "matches": m,
-                        "path": path, "device_ms": dms, "wall_ms": wms, "card": card}
-                if path == "trip_kernel":
-                    line.update(bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_MS)
-                print(json.dumps(line), flush=True)
+    for lead, m in problems.LM_SHAPES:
+        prob = problems.stage_problem(lead, m, seed=7, dev=dev)
+        for compat in (True, False):
+            for stage, system, problem, x0, kept, lower in problems.stage_systems(prob, cfg,
+                                                                                  compat):
+                step, state = problems.eager_state(system, x0, cfg, lower, 0)
+                own = tuple(t.clone() for t in state)
+                trips = cuda_lm.Trips(problem, own, cfg, lower, kept)
+                counts = torch.zeros(2, dtype=torch.int32, device=dev)
+                runs = {"trip_ops": lambda: step(state), "trip_kernel": lambda: trips.run(counts)}
+                nbytes = _trip_bytes(problem, own, kept, trips.scratch)
+                for path, fn in runs.items():
+                    dms, wms = device_ms(fn)
+                    line = {"tree": label, "stage": stage, "lead": list(lead), "matches": m,
+                            "mode": "compat" if compat else "corrected", "path": path,
+                            "device_ms": dms, "wall_ms": wms, "card": card}
+                    if path == "trip_kernel":
+                        line.update(bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_MS)
+                    print(json.dumps(line), flush=True)
 
 
 def _trip_bytes(problem, state, kept, scratch):
@@ -282,14 +231,15 @@ def main():
     ap.add_argument("--against", default="", help="with --solves: a second checkout, in turns")
     ap.add_argument("--lm", action="store_true", help="time one LM trip of each stage")
     args = ap.parse_args()
-    if args.save_solves:
-        return save_solves(args.save_solves, root)
-    if not torch.cuda.is_available():
-        sys.exit("kernel_times: no CUDA device")
     tree = Path(args.tree).resolve()
     sys.path.insert(0, str(tree))
+    if args.save_solves:
+        return save_solves(args.save_solves)
+    if not torch.cuda.is_available():
+        sys.exit("kernel_times: no CUDA device")
     from spherical_bundle_adjuster_tpu_torch.ops import cuda_match, cuda_surf, integral
     from spherical_bundle_adjuster_tpu_torch.utils.config import SurfConfig
+    from spherical_bundle_adjuster_tpu_torch.utils.profiling import device_ms
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -311,13 +261,7 @@ def main():
     d2 = torch.nn.functional.normalize(torch.randn(2048, 64, device=dev, generator=g), dim=-1)
     v2 = torch.rand(2048, device=dev, generator=g) > 0.1
     cfg = SurfConfig(n_octaves=4)
-    if hasattr(cuda_surf, "det_pyramid_cuda"):  # one launch for every octave
-        runs = {"det_pyramid": lambda: cuda_surf.det_pyramid_cuda(ii, cfg)}
-    else:  # one launch per octave (the first version of the kernels)
-        runs = {f"det_octave_{o}": (lambda o=o: cuda_surf.det_octave_cuda(ii, o, cfg))
-                for o in range(cfg.n_octaves)}
-        runs["det_pyramid"] = lambda: [cuda_surf.det_octave_cuda(ii, o, cfg)
-                                       for o in range(cfg.n_octaves)]
+    runs = {"det_pyramid": lambda: cuda_surf.det_pyramid_cuda(ii, cfg)}
     runs["haar_trace_maps"] = lambda: cuda_surf.haar_trace_maps_cuda(ii, cfg)
     runs["top2_distances"] = lambda: cuda_match.top2_distances_cuda(d1, d2, v2)
     for name, fn in runs.items():

@@ -149,16 +149,8 @@ def _loop(cost_and_system, x0, cfg, max_iters, lower_bound, eager):
         init_cost = state[3].clone()
         n_left = table[0]
     else:
-        n = x0.shape[-1]
-        small_solve = {2: smallmat.solve2, 3: smallmat.solve3}[n]
-        eye = torch.eye(n, dtype=x0.dtype, device=x0.device)
-        step = functools.partial(_trip, cost_and_system, cfg, small_solve, eye, lower_bound)
-        cost, H, g = cost_and_system(x0)
-        init_cost = cost
-        lam = torch.full_like(cost, cfg.lm_lambda_init)
-        it = torch.zeros(cost.shape, dtype=torch.int32, device=x0.device)
-        done = torch.zeros(cost.shape, dtype=torch.bool, device=x0.device)
-        state = (x0, H, g, cost, cost, lam, it, done)
+        step, state = _eager_start(cost_and_system, x0, cfg, lower_bound)
+        init_cost, done = state[3], state[-1]
         every = torch.ones_like(done)
         kept = torch.stack([every, every if kept is None else kept])  # (2, N)
         n_left = _active(done, kept)
@@ -180,6 +172,21 @@ def _loop(cost_and_system, x0, cfg, max_iters, lower_bound, eager):
             n_left = _active(state[-1], kept)
     x, _, _, _, cost_s, _, it, _ = state
     return x, StageReport(it, init_cost, cost_s)
+
+
+def _eager_start(cost_and_system, x0, cfg, lower_bound):
+    """The loop run op by op from x0: its trip (`_trip` on the stage's
+    problem, out of place) and its state before the first trip, (x0, H,
+    g, cost, cost, lam, it, done)."""
+    n = x0.shape[-1]
+    small_solve = {2: smallmat.solve2, 3: smallmat.solve3}[n]
+    eye = torch.eye(n, dtype=x0.dtype, device=x0.device)
+    step = functools.partial(_trip, cost_and_system, cfg, small_solve, eye, lower_bound)
+    cost, H, g = cost_and_system(x0)
+    lam = torch.full_like(cost, cfg.lm_lambda_init)
+    it = torch.zeros(cost.shape, dtype=torch.int32, device=x0.device)
+    done = torch.zeros(cost.shape, dtype=torch.bool, device=x0.device)
+    return step, (x0, H, g, cost, cost, lam, it, done)
 
 
 def _active(done, kept):

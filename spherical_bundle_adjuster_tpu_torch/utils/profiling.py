@@ -37,9 +37,9 @@ from contextlib import contextmanager, nullcontext
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from .. import kernel_times
-
 DEFAULT_LOG_DIR = os.path.join(tempfile.gettempdir(), "sba_trace")
+
+SPIN_PROBE_CYCLES = 10**7
 
 COUNTS: collections.Counter = collections.Counter()
 LAST_CALL: collections.Counter = collections.Counter()
@@ -100,18 +100,46 @@ def trace(log_dir: str = DEFAULT_LOG_DIR):
         os.path.join(log_dir, f"sba_trace_{os.getpid()}_{time.time_ns()}.json"))
 
 
+def device_ms(fn, iters=20, warmup=3):
+    """Mean device time of fn() in ms, and its mean wall time per call.
+
+    The calls are queued behind torch.cuda._sleep, sized to outlast the
+    host's queueing, so the events between them time the kernels back to
+    back rather than the host's launch rate."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / iters
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(SPIN_PROBE_CYCLES)
+    end.record()
+    torch.cuda.synchronize()
+    cycles_per_ms = SPIN_PROBE_CYCLES / start.elapsed_time(end)
+    torch.cuda._sleep(int(cycles_per_ms * (2.0 * wall * iters + 5.0)))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters, wall
+
+
 def device_time(body_fn, reps: int = 32, n: int = 3, device=None):
     """Median seconds per call of `body_fn()` over n samples of `reps`
     back-to-back calls, each after one warm-up call. On the card (device
-    "cuda", the default where a card is present) a sample is
-    kernel_times.device_ms: CUDA events around calls queued behind a spin
-    on the card, so it times the card's work rather than the host's launch
-    rate. On the CPU a sample is time.perf_counter around the calls."""
+    "cuda", the default where a card is present) a sample is device_ms:
+    CUDA events around calls queued behind a spin on the card, so it times
+    the card's work rather than the host's launch rate. On the CPU a sample is time.perf_counter around the calls."""
     if device is None:
         device = "cuda" if torch.cuda.is_available() else "cpu"
     if torch.device(device).type == "cuda":
         return statistics.median(
-            kernel_times.device_ms(body_fn, reps, warmup=1)[0] for _ in range(n)) / 1e3
+            device_ms(body_fn, reps, warmup=1)[0] for _ in range(n)) / 1e3
     body_fn()
     ts = []
     for _ in range(n):

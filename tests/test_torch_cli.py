@@ -17,11 +17,11 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
 from spherical_bundle_adjuster_tpu import cli as jcli
 from spherical_bundle_adjuster_tpu.models import twoview as jtv
 from spherical_bundle_adjuster_tpu.solver import lm as jlm
 from spherical_bundle_adjuster_tpu_torch import cli as tcli
+from spherical_bundle_adjuster_tpu_torch import problems
 from spherical_bundle_adjuster_tpu_torch.models import twoview as ttv
 from spherical_bundle_adjuster_tpu_torch.solver import lm as tlm
 from spherical_bundle_adjuster_tpu_torch.utils import io as tio, synthetic
@@ -183,7 +183,7 @@ def test_cli_on_the_cpu_recovers_the_rotation(tmp_path, capsys):
         assert len(row) == 1 and len(row[0].split(",")) == 10
         row = row[0].split(",")
         assert f"rotation vector in degree {' '.join(row[3:6])}" in printed
-        errs.append(chip_smoke.rot_err_deg_host(np.deg2rad([float(v) for v in row[3:6]]), R))
+        errs.append(problems.rot_err_deg_host(np.deg2rad([float(v) for v in row[3:6]]), R))
         matches.append(int(row[9]))
         assert len((out / "log_d.txt").read_text().splitlines()) == matches[-1]
         assert json.loads((out / "metrics.jsonl").read_text())["event"] == "two_view_ba"

@@ -15,6 +15,9 @@ from spherical_bundle_adjuster_tpu_torch.utils.config import (
 
 pytestmark = pytest.mark.cuda
 
+# the hand-written kernels of the front end, whose launches a pipeline run must grow
+KERNELS = (cuda_surf.DET_PYRAMID, cuda_surf.HAAR_TRACE, cuda_match.TOP2)
+
 
 @pytest.fixture(scope="module")
 def dev():
@@ -336,7 +339,7 @@ def test_run_two_view_batch_on_the_card(dev):
 
 
 # The global solvers (plain PyTorch on the card): small problems from
-# chip_smoke.py's numpy recipes, each solver route.
+# problems.py's numpy recipes, each solver route.
 SOLVER_CASES = [
     ("multiview", (8, 128, 4, 0.05, 2), dict(num_iters=8)),                      # auto -> dense
     ("multiview", (40, 160, 4, 0.05, 1), dict(num_iters=8)),                     # auto -> pcg
@@ -347,14 +350,14 @@ SOLVER_CASES = [
 
 
 def _solver_case(kind, args, kw, device):
-    import chip_smoke
+    from spherical_bundle_adjuster_tpu_torch import problems
     from spherical_bundle_adjuster_tpu_torch.models import multiview
     from spherical_bundle_adjuster_tpu_torch.solver import pose_graph
 
     if kind == "multiview":
-        fields, _ = chip_smoke.synth_multiview(*args)
+        fields, _ = problems.synth_multiview(*args)
         return multiview.problem_from_numpy(fields, device), lambda p: multiview.solve_multiview(p, **kw)
-    fields, _ = chip_smoke.synth_pose_graph(*args)
+    fields, _ = problems.synth_pose_graph(*args)
 
     def solve(g):
         return pose_graph.optimize_pose_graph(g, **kw)
@@ -425,11 +428,11 @@ def test_chain_with_loop_closures_takes_closures_on_the_card(dev):
     port's CPU build of the same values (the chained poses within 1e-5,
     the card's 3x3 products may round otherwise; every other field bit
     for bit)."""
-    import chip_smoke
+    from spherical_bundle_adjuster_tpu_torch import problems
     from spherical_bundle_adjuster_tpu_torch.solver import pose_graph
 
     n = 24
-    _, ei, ej, rot, tran, _ = chip_smoke.synth_pose_graph(n, 4, 4)[0]
+    _, ei, ej, rot, tran, _ = problems.synth_pose_graph(n, 4, 4)[0]
 
     def build(device):
         t = [torch.as_tensor(x, device=device) for x in (rot, tran)]
@@ -457,13 +460,13 @@ def test_tracks_build_on_the_card_matches_the_cpu(dev):
     """models/tracks.build_multiview_problem on the card: no torch call
     returns a CPU tensor, two builds give the same bits, and the build
     equals the port's CPU build of the same inputs within
-    chip_smoke.problem_gaps' tolerances (ints and bools exact)."""
-    import chip_smoke
+    problems.problem_gaps' tolerances (ints and bools exact)."""
+    from spherical_bundle_adjuster_tpu_torch import problems
     from spherical_bundle_adjuster_tpu_torch.models import tracks
 
-    fields, _ = chip_smoke.synth_tracks(10, 80, 1)
+    fields, _ = problems.synth_tracks(10, 80, 1)
     inputs = [torch.as_tensor(a, device=dev) for a in fields]
-    w, h = chip_smoke.TRACKS_W, chip_smoke.TRACKS_H
+    w, h = problems.TRACKS_W, problems.TRACKS_H
     tracks.build_multiview_problem(*inputs, w, h)  # imports outside the watch
     mode = _CpuTensors()
     with mode:
@@ -472,13 +475,13 @@ def test_tracks_build_on_the_card_matches_the_cpu(dev):
     again = tracks.build_multiview_problem(*inputs, w, h)
     assert all(torch.equal(a, b) for a, b in zip(card, again))
     cpu = tracks.build_multiview_problem(*(a.cpu() for a in inputs), w, h)
-    gaps = chip_smoke.problem_gaps(card, cpu, chip_smoke.landmark_det(fields, w, h))
+    gaps = problems.problem_gaps(card, cpu, problems.landmark_det(fields, w, h))
     assert gaps["within"], gaps
 
 
 def test_run_sequence_from_numpy_frames_runs_on_the_card(dev):
     """models/sequence.run_sequence on numpy frames (5 frames along
-    chip_smoke.trajectory_poses at 128x256, one closure, the global BA):
+    problems.trajectory_poses at 128x256, one closure, the global BA):
     the frames go to the card, K1, K2 and K3 launch, every result field
     is on the card and finite (the BA's cost trace but for the NaN of a
     rejected step, min(cost0, NaN) as in the reference, with its last
@@ -486,7 +489,7 @@ def test_run_sequence_from_numpy_frames_runs_on_the_card(dev):
     within 0.5 deg (the compat parity bound) of the port's CPU run with
     the same draws (a batch row on the card may round its consensus start
     otherwise: card_rounding.py)."""
-    import chip_smoke
+    from spherical_bundle_adjuster_tpu_torch import problems
     from spherical_bundle_adjuster_tpu_torch.models import sequence
     from spherical_bundle_adjuster_tpu_torch.solver import epipolar
     from spherical_bundle_adjuster_tpu_torch.utils.config import BaConfig
@@ -494,23 +497,23 @@ def test_run_sequence_from_numpy_frames_runs_on_the_card(dev):
     cfg = PipelineConfig(surf=SurfConfig(max_keypoints=128, n_octaves=2),
                          match=MatchConfig(max_matches=256, ratio_thresh=0.6),
                          ba=BaConfig(reference_compat=False))
-    frames, _ = chip_smoke.trajectory_frames(5, 128, 256, "cpu")
+    frames, _ = problems.trajectory_frames(5, 128, 256, "cpu")
     g = torch.Generator().manual_seed(0)
     draws = epipolar.gumbel_draws(cfg.ransac.num_trials, cfg.match.max_matches, g, "cpu", (4,))
     one = epipolar.gumbel_draws(cfg.ransac.num_trials, cfg.match.max_matches, g, "cpu")
     kw = dict(closures=[(0, 2)], global_ba=True)
-    before = [k.launches for k in chip_smoke.LAUNCHED]
+    before = [k.launches for k in KERNELS]
     card = sequence.run_sequence(frames.numpy(), None, cfg, gumbel=draws.to(dev),
                                  closure_gumbel=one.to(dev), **kw)
     torch.cuda.synchronize()
-    assert all(k.launches > b for k, b in zip(chip_smoke.LAUNCHED, before))
+    assert all(k.launches > b for k, b in zip(KERNELS, before))
     assert all(t.device.type == "cuda" for t in card)
     assert all(bool(torch.isfinite(t).all()) for t in card[:-2] + card[-1:])
     ba = card.ba_costs.cpu().numpy()
     assert ba.shape == (15,) and np.isfinite(ba[-1]) and ba[-1] < ba[0], ba
     cpu = sequence.run_sequence(frames, None, cfg, gumbel=draws, closure_gumbel=one, **kw)
     for a, b in zip(card.pairwise_rot.cpu().numpy(), cpu.pairwise_rot.numpy()):
-        assert chip_smoke.rot_err_deg_host(a, chip_smoke.angle_axis_matrix(b)) < 0.5
+        assert problems.rot_err_deg_host(a, problems.angle_axis_matrix(b)) < 0.5
 
 
 def test_cli_on_the_card(dev, tmp_path, capsys):
@@ -519,24 +522,23 @@ def test_cli_on_the_card(dev, tmp_path, capsys):
     the rotation lies within the bench's 512 compat median gate (2.5
     deg), and the printed pose is run_two_view's on the card for the same
     PNGs, config and seed."""
-    import chip_smoke
-    from spherical_bundle_adjuster_tpu_torch import cli
+    from spherical_bundle_adjuster_tpu_torch import cli, problems
     from spherical_bundle_adjuster_tpu_torch.models import twoview
     from spherical_bundle_adjuster_tpu_torch.utils import io
 
-    left, right, R = chip_smoke.make_pair(0, 512, 1024, dev)
+    left, right, R = problems.make_pair(0, 512, 1024, dev)
     paths = [str(tmp_path / "l.png"), str(tmp_path / "r.png")]
     io.save_image(left, paths[0])
     io.save_image(right, paths[1])
-    euler = np.random.default_rng(chip_smoke.SEED).uniform(-5, 5, (chip_smoke.N_DISTINCT, 3))[0]
+    euler = np.random.default_rng(problems.SEED).uniform(-5, 5, (problems.N_DISTINCT, 3))[0]
     argv = [*paths, *(repr(float(v)) for v in euler), "0", "0", "0", "1", "--max-keypoints",
             "256", "--ratio-thresh", "0.5", "--out-dir", str(tmp_path / "out")]
-    before = [k.launches for k in chip_smoke.LAUNCHED]
+    before = [k.launches for k in KERNELS]
     assert cli.main(argv) == 0
-    assert all(k.launches > b for k, b in zip(chip_smoke.LAUNCHED, before))
+    assert all(k.launches > b for k, b in zip(KERNELS, before))
     stdout = capsys.readouterr().out
-    rot = chip_smoke.printed(stdout, "rotation vector in degree ")
-    assert chip_smoke.rot_err_deg_host(np.deg2rad(np.array(rot, np.float64)), R) <= 2.5
+    rot = problems.printed(stdout, "rotation vector in degree ")
+    assert problems.rot_err_deg_host(np.deg2rad(np.array(rot, np.float64)), R) <= 2.5
     args = cli.build_parser().parse_args(argv)
     out = twoview.run_two_view(left, right, torch.Generator(dev).manual_seed(0),
                                cli.build_config(args))
@@ -551,11 +553,11 @@ def test_checkpoint_moves_between_the_card_and_the_cpu(dev, tmp_path):
     card) bit for bit, each leaf on the device and with the dtype of its
     leaf in `like`; a resumed solve on the card equals an uninterrupted
     one bit for bit."""
-    import chip_smoke
+    from spherical_bundle_adjuster_tpu_torch import problems
     from spherical_bundle_adjuster_tpu_torch.models import multiview
     from spherical_bundle_adjuster_tpu_torch.utils import checkpoint
 
-    fields, _ = chip_smoke.synth_multiview(12, 512, 4, 0.03, 0)
+    fields, _ = problems.synth_multiview(12, 512, 4, 0.03, 0)
     card = multiview.problem_from_numpy(fields, dev)
     cpu = multiview.problem_from_numpy(fields, "cpu")
     checkpoint.save_checkpoint(str(tmp_path / "c"), card, step=1)

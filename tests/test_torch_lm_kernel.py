@@ -27,50 +27,21 @@ import pytest
 import torch
 
 from spherical_bundle_adjuster_tpu_torch.ops import cuda_lm
+from spherical_bundle_adjuster_tpu_torch.problems import (
+    LM_CPU_SHAPES, LM_SHAPES, eager_state, solve_stages, stage_problem, stage_systems,
+)
 from spherical_bundle_adjuster_tpu_torch.solver import lm
 from spherical_bundle_adjuster_tpu_torch.utils import profiling
 from spherical_bundle_adjuster_tpu_torch.utils.config import BaConfig
-from test_torch_lm_graph import CPU_SHAPES, solve_stages, stage_problem
 
 torch.set_num_threads(1)
-
-# (leading axes, matches): a 2K pair, alone (compat) and with 4 starts
-# (corrected); a 64-pair batch at 512 matches, alone and with 4 starts
-CARD_SHAPES = [((), 1024), ((4,), 1024), ((64,), 512), ((64, 4), 512)]
-
-
-def stage_systems(prob, cfg, compat):
-    """Each stage's (stage, cost_and_system, kernel problem, x0, kept,
-    lower bound) at the problem's start, as solve_stages runs them."""
-    b1, b2, valid, d0, r0, t0 = prob
-    pair = d0[..., 0, :] if compat else d0
-    sys_d, p_d = lm._depth_system(b1, b2, r0, t0, valid, cfg)
-    sys_r, p_r = lm._global_system(True, b1, b2, pair, t0, r0, valid, cfg)
-    sys_t, p_t = lm._global_system(False, b1, b2, pair, r0, t0, valid, cfg)
-    return [("depth", sys_d, p_d, d0.reshape(-1, 2), valid.reshape(-1), cfg.d_lower_bound),
-            ("rot", sys_r, p_r, r0.reshape(-1, 3), None, None),
-            ("tran", sys_t, p_t, t0.reshape(-1, 3), None, None)]
-
-
-def eager_state(sys, x0, cfg, lower_bound, trips):
-    """The loop's state after `trips` trips run op by op."""
-    n = x0.shape[-1]
-    small_solve = {2: lm.smallmat.solve2, 3: lm.smallmat.solve3}[n]
-    eye = torch.eye(n, dtype=x0.dtype, device=x0.device)
-    cost, H, g = sys(x0)
-    state = (x0, H, g, cost, cost, torch.full_like(cost, cfg.lm_lambda_init),
-             torch.zeros(cost.shape, dtype=torch.int32, device=x0.device),
-             torch.zeros(cost.shape, dtype=torch.bool, device=x0.device))
-    for _ in range(trips):
-        state = lm._trip(sys, cfg, small_solve, eye, lower_bound, state)
-    return state, (sys, cfg, small_solve, eye, lower_bound)
 
 
 # ---------------------------------------------------------------------------
 # CPU
 
 
-@pytest.mark.parametrize("lead,m", CPU_SHAPES)
+@pytest.mark.parametrize("lead,m", LM_CPU_SHAPES)
 def test_the_stages_on_the_cpu_never_reach_the_kernel(monkeypatch, lead, m):
     """CPU tensors take lm._trip: no launch, no kernel trip counted, and
     results and reports equal to the op-by-op loop's."""
@@ -85,10 +56,8 @@ def test_the_stages_on_the_cpu_never_reach_the_kernel(monkeypatch, lead, m):
         with monkeypatch.context() as mp:
             mp.setattr(cuda_lm, "start", refuse)
             mp.setattr(cuda_lm.Trips, "run", refuse)
-            got = solve_stages(prob, cfg, compat)
-        with monkeypatch.context() as mp:
-            mp.setattr(lm, "lm_fixed", lm._lm_eager)
-            ref = solve_stages(prob, cfg, compat)
+            got = solve_stages(prob, cfg, compat, lm.lm_fixed)
+        ref = solve_stages(prob, cfg, compat, lm._lm_eager)
         for (stage, res, rep, grew), (_, res_e, rep_e, grew_e) in zip(got, ref):
             assert not any("kernel" in k for k in grew) and grew == grew_e, grew
             assert torch.equal(res, res_e), stage
@@ -103,9 +72,9 @@ def test_the_wrapper_refuses_what_the_kernel_does_not_take(fault):
     and a strided state, for the initial evaluation and for a trip."""
     b1, b2, valid, d0, r0, t0 = stage_problem((), 16)
     cfg = BaConfig()
-    (_, sys, problem, x0, kept, lower), *_ = stage_systems(
+    (_, system, problem, x0, kept, lower), *_ = stage_systems(
         (b1, b2, valid, d0, r0, t0), cfg, compat=False)
-    state, _ = eager_state(sys, x0, cfg, lower, 0)
+    _, state = eager_state(system, x0, cfg, lower, 0)
     counts = torch.zeros(2, dtype=torch.int32)
     if fault == "float64":
         x0 = x0.double()
@@ -181,17 +150,17 @@ def _assert_same(got, ref, what):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("lead,m", CARD_SHAPES)
+@pytest.mark.parametrize("lead,m", LM_SHAPES)
 @pytest.mark.parametrize("compat", [True, False], ids=["compat", "corrected"])
 def test_one_kernel_trip_matches_the_op_by_op_trip(dev, lead, m, compat):
     """From the same state, after 3 trips op by op (some problems done):
     the kernels' trip and lm._trip give the same state bit for bit, and
     the counts of it."""
-    prob = [x.to(dev) for x in stage_problem(lead, m, seed=7)]
+    prob = stage_problem(lead, m, seed=7, dev=dev)
     cfg = BaConfig()
-    for stage, sys, problem, x0, kept, lower in stage_systems(prob, cfg, compat):
-        state, args = eager_state(sys, x0, cfg, lower, 3)
-        ref = lm._trip(*args, state)
+    for stage, system, problem, x0, kept, lower in stage_systems(prob, cfg, compat):
+        step, state = eager_state(system, x0, cfg, lower, 3)
+        ref = step(state)
         got = tuple(t.clone() for t in state)
         counts = torch.zeros(2, dtype=torch.int32, device=dev)
         cuda_lm.Trips(problem, got, cfg, lower, kept).run(counts)
@@ -202,14 +171,14 @@ def test_one_kernel_trip_matches_the_op_by_op_trip(dev, lead, m, compat):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("lead,m", CARD_SHAPES)
+@pytest.mark.parametrize("lead,m", LM_SHAPES)
 def test_kernel_solves_match_the_eager_loop(dev, monkeypatch, lead, m):
     """Each stage, solved through the kernels and by lm._lm_eager, in
     both modes: results and StageReports bit for bit, the same syncs,
     active and slots counts, one kernel trip a trip (syncs - 1 for a loop
     that stops on its read, syncs at the iteration cap), and no trip run
     op by op."""
-    prob = [x.to(dev) for x in stage_problem(lead, m, seed=7)]
+    prob = stage_problem(lead, m, seed=7, dev=dev)
     cfg = BaConfig()
 
     def no_eager_trip(*args):
@@ -218,10 +187,8 @@ def test_kernel_solves_match_the_eager_loop(dev, monkeypatch, lead, m):
     for compat in (True, False):
         with monkeypatch.context() as mp:
             mp.setattr(lm, "_trip", no_eager_trip)
-            got = solve_stages(prob, cfg, compat)
-        with monkeypatch.context() as mp:
-            mp.setattr(lm, "lm_fixed", lm._lm_eager)
-            ref = solve_stages(prob, cfg, compat)
+            got = solve_stages(prob, cfg, compat, lm.lm_fixed)
+        ref = solve_stages(prob, cfg, compat, lm._lm_eager)
         for (stage, res, rep, grew), (_, res_e, rep_e, grew_e) in zip(got, ref):
             assert torch.equal(res, res_e), (stage, int((res != res_e).sum()))
             for name, a, b in zip(lm.StageReport._fields, rep, rep_e):
@@ -238,11 +205,11 @@ def test_launches_a_trip_and_a_solve(dev):
     evaluation: DEPTH_POINT and DEPTH_SETTLE a depth trip; SOLVE, POINT
     and SETTLE a rotation or translation trip (SOLVE not when
     evaluating)."""
-    prob = [x.to(dev) for x in stage_problem((64, 4), 512, seed=3)]
+    prob = stage_problem((64, 4), 512, seed=3, dev=dev)
     cfg = BaConfig()
     for compat in (True, False):
         before = [k.launches for k in cuda_lm.KERNELS]
-        out = solve_stages(prob, cfg, compat)
+        out = solve_stages(prob, cfg, compat, lm.lm_fixed)
         trips = {stage: grew[f"lm.{stage}.kernel_trips"] for stage, _, _, grew in out}
         grew = [k.launches - b for k, b in zip(cuda_lm.KERNELS, before)]
         depth, others = trips["depth"], trips["rot"] + trips["tran"]
@@ -254,7 +221,7 @@ def test_kernel_solves_leave_the_memory_as_they_found_it(dev):
     """After a solve, once its results are dropped, the memory allocated
     on the card is what it was before, and repeated solves reserve no
     more."""
-    b1, b2, valid, d0, r0, t0 = (x.to(dev) for x in stage_problem((64, 4), 512, seed=3))
+    b1, b2, valid, d0, r0, t0 = stage_problem((64, 4), 512, seed=3, dev=dev)
     cfg = BaConfig()
 
     def solve():
@@ -280,7 +247,7 @@ def test_kernel_trips_read_the_host_once_a_trip(dev, monkeypatch):
     counts them) and no other. Sync debug mode is switched on once
     before both solves: switching it on warns once a process that the
     mode is a prototype, which would fall to whichever solve came first."""
-    b1, b2, valid, d0, r0, t0 = (x.to(dev) for x in stage_problem((), 1024, seed=5))
+    b1, b2, valid, d0, r0, t0 = stage_problem((), 1024, seed=5, dev=dev)
     cfg = BaConfig()
     lm.solve_depths(b1, b2, d0, r0, t0, valid, cfg)  # builds and loads the kernels
     torch.cuda.synchronize()

@@ -20,7 +20,7 @@ Q, SUB = cuda_match.Q_TILE, cuda_match.SUB_ROWS
 GRID, PER = 16, 8  # the kernel's 16 x 16 thread grid, 8 x 8 outputs each
 # the 2K bank, the 512x1024 bank (4 bands x 256 keypoints; also the
 # 10-keyframe sequence's), the orbit sequence's parity and dense banks
-# (4 and 8 bands x 64 keypoints: chip_smoke.sequence_launch_shapes), ragged
+# (4 and 8 bands x 64 keypoints: problems.sequence_launch_shapes), ragged
 # and tiny banks, and an 8K-scale bank
 SHAPES = [(2048, 2048), (1024, 1024), (256, 256), (512, 512), (1, 64), (100, 333),
           (300, 2100), (8192, 8192)]

@@ -1,6 +1,7 @@
 """The port imports torch and never jax nor the JAX package, directly or
-indirectly; its entry points default to the card; and the GPU smoke script
-refuses to run without a card or without the repo."""
+indirectly; no layer of the port imports its tools; its entry points
+default to the card; and the GPU smoke script refuses to run without a
+card or without the repo."""
 
 import ast
 import inspect
@@ -60,6 +61,32 @@ def test_port_imports_no_jax():
                          env=_env(), cwd=ROOT, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
+
+
+# the port's layers, and the modules beside them that drive or check it
+LAYERS = ("core", "ops", "solver", "models", "parallel", "utils")
+TOOLS = ("kernel_times", "problems", "cli")
+
+
+def test_no_layer_of_the_port_imports_a_tool():
+    """Importing every module of the port's layers loads none of its tools:
+    kernel_times (the kernel timer), problems (the check problems) and
+    cli (the command line)."""
+    mods = sorted(
+        "spherical_bundle_adjuster_tpu_torch." + ".".join(p.relative_to(PKG).with_suffix("").parts)
+        for layer in LAYERS for p in (PKG / layer).rglob("*.py")
+        if p.name != "__init__.py"
+    )
+    tools = [f"spherical_bundle_adjuster_tpu_torch.{t}" for t in TOOLS]
+    code = (
+        "import sys, importlib\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        f"print(sorted(m for m in {tools!r} if m in sys.modules))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=_env(), cwd=ROOT, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert len(mods) > 30 and out.stdout.strip() == "[]", out.stdout
 
 
 def test_no_file_of_the_port_mentions_a_jax_import():

@@ -160,15 +160,15 @@ class _HostReads(TorchFunctionMode):
 
 
 def _solver(kind, solver_kw):
+    from spherical_bundle_adjuster_tpu_torch import problems
     from spherical_bundle_adjuster_tpu_torch.models import multiview
     from spherical_bundle_adjuster_tpu_torch.solver import pose_graph
-    import chip_smoke
 
     if kind == "multiview":
-        fields, _ = chip_smoke.synth_multiview(8, 64, 4, 0.05, 0)
+        fields, _ = problems.synth_multiview(8, 64, 4, 0.05, 0)
         prob = multiview.problem_from_numpy(fields, "cpu")
         return lambda n: multiview.solve_multiview(prob, num_iters=n, **solver_kw)
-    fields, _ = chip_smoke.synth_pose_graph(30, 3, 0)
+    fields, _ = problems.synth_pose_graph(30, 3, 0)
     g = pose_graph.graph_from_numpy(fields, "cpu")
     return lambda n: pose_graph.optimize_pose_graph(g, num_iters=n, **solver_kw)
 

@@ -29,7 +29,6 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-import chip_smoke as smoke
 import torch_ranks
 from spherical_bundle_adjuster_tpu.core import rotation as jrot
 from spherical_bundle_adjuster_tpu.models import frontend as jfront
@@ -41,6 +40,7 @@ from spherical_bundle_adjuster_tpu.solver import pose_graph as jpg
 from spherical_bundle_adjuster_tpu.utils.config import (
     BaConfig, MatchConfig, PipelineConfig, SurfConfig,
 )
+from spherical_bundle_adjuster_tpu_torch import problems
 from spherical_bundle_adjuster_tpu_torch.models import frontend as tfront
 from spherical_bundle_adjuster_tpu_torch.models import sequence as tseq
 from spherical_bundle_adjuster_tpu_torch.models import twoview as ttv
@@ -65,7 +65,7 @@ ROT_CFG = PipelineConfig(
     match=MatchConfig(max_matches=256, ratio_thresh=0.6),
     ba=BaConfig(reference_compat=False),
 )
-# a translating sequence: 5 frames along chip_smoke.trajectory_poses (3
+# a translating sequence: 5 frames along problems.trajectory_poses (3
 # deg yaw and 0.25 units a frame) at 128x256, one closure, the global BA;
 # the bench's corrected mode (80 trials)
 TR_FRAMES, TR_H, TR_W = 5, 128, 256
@@ -143,10 +143,10 @@ def rotation_case():
 
 
 def _trajectory_frames():
-    rng = np.random.default_rng(smoke.ODO_SEED)
+    rng = np.random.default_rng(problems.ODO_SEED)
     params = tsyn.texture_params_from_numpy(rng)
     dists = tsyn.disc_distances_from_numpy(rng)
-    gt = smoke.trajectory_poses(TR_FRAMES)
+    gt = problems.trajectory_poses(TR_FRAMES)
     return tsyn.render_trajectory(params, dists, gt, TR_H, TR_W, "cpu").numpy(), gt
 
 
@@ -165,7 +165,7 @@ def _rot_gap(aa_a, aa_b):
     near 0 where arccos of the trace is not)."""
     gaps = []
     for a, b in zip(np.asarray(aa_a, np.float64), np.asarray(aa_b, np.float64)):
-        d = smoke.angle_axis_matrix(a).T @ smoke.angle_axis_matrix(b)
+        d = problems.angle_axis_matrix(a).T @ problems.angle_axis_matrix(b)
         sin = 0.5 * np.linalg.norm([d[2, 1] - d[1, 2], d[0, 2] - d[2, 0], d[1, 0] - d[0, 1]])
         gaps.append(np.arctan2(sin, 0.5 * (np.trace(d) - 1)))
     return float(max(gaps))
@@ -220,9 +220,9 @@ def test_rotation_sequence_meets_the_reference_test_bounds(rotation_case):
     R = [np.asarray(jrot.euler_to_matrix(jnp.asarray(e, jnp.float32)), np.float64)
          for e in np.deg2rad(ROT_EULERS_DEG)]
     for k in range(3):
-        err = smoke.rot_err_deg_host(out_t.pairwise_rot[k].numpy(), R[k + 1] @ R[k].T)
+        err = problems.rot_err_deg_host(out_t.pairwise_rot[k].numpy(), R[k + 1] @ R[k].T)
         assert err < 2.0, (k, err)
-    assert smoke.rot_err_deg_host(out_t.poses[-1, :3].numpy(), R[-1]) < 4.0
+    assert problems.rot_err_deg_host(out_t.poses[-1, :3].numpy(), R[-1]) < 4.0
     assert float(out_t.pg_costs[-1]) <= float(out_t.pg_costs[0]) + 1e-6
 
 
@@ -422,18 +422,18 @@ def test_sequence_over_a_two_rank_mesh(translating_case):
     np.testing.assert_allclose(got.poses[:, 3:].numpy(), out_j.poses[:, 3:], atol=3e-3)
 
 
-@pytest.mark.parametrize("seed", [0, smoke.SEED, 123456789])
+@pytest.mark.parametrize("seed", [0, problems.SEED, 123456789])
 def test_reference_draws_reproduce_jax_random(seed):
-    """chip_smoke.reference_sequence_draws (numpy Threefry, no jax) against
+    """problems.reference_sequence_draws (numpy Threefry, no jax) against
     the reference's own draws for key PRNGKey(seed): split keys and
     uniform bits exactly; the Gumbel values to the last ulps of the two
     packages' float32 logs (measured: 4.8e-7 at most, tolerance 2e-6)."""
     key = jax.random.PRNGKey(seed)
-    np.testing.assert_array_equal(smoke.reference_split(np.asarray(key), 7),
+    np.testing.assert_array_equal(problems.reference_split(np.asarray(key), 7),
                                   np.asarray(jax.random.split(key, 7)))
     cfg = dataclasses.replace(ROT_CFG, ransac=dataclasses.replace(ROT_CFG.ransac, num_trials=16),
                               match=dataclasses.replace(ROT_CFG.match, max_matches=64))
-    odo, closure = smoke.reference_sequence_draws(seed, 3, 16, 64)
+    odo, closure = problems.reference_sequence_draws(seed, 3, 16, 64)
     assert odo.shape == (3, 16, 64) and closure.shape == (16, 64)
     np.testing.assert_allclose(odo, _odometry_draws(cfg, key, 3).numpy(), rtol=0, atol=2e-6)
     np.testing.assert_allclose(closure, _draws(cfg, key), rtol=0, atol=2e-6)

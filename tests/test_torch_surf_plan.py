@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke as smoke
+from spherical_bundle_adjuster_tpu_torch import problems
 from spherical_bundle_adjuster_tpu_torch.ops import cuda_surf, integral
 from spherical_bundle_adjuster_tpu_torch.utils.config import SurfConfig
 
@@ -269,13 +269,13 @@ def test_integral_image_rows_are_aligned(w):
 # 128, 256, 512), and the 7 consecutive pairs of an 8-frame odometry
 # batch (56); the ERP front end at 2K: 2 images of 1024 x 2048; the
 # cubemap front end at 2K: 2 strips of 600 x 3600 (4 octaves); and every
-# shape that chip_smoke.py's run_sequence phases can launch
-# (chip_smoke.sequence_launch_shapes: the orbit's bands of 64 x 512 with 2
+# shape that the sequence runs (problems.SEQ_RUNS) can launch
+# (problems.sequence_launch_shapes: the orbit's bands of 64 x 512 with 2
 # octaves, 8 a pair on the parity ladder and 16 on the dense one, the
 # 10-keyframe run's bands of 128 x 1024, in passes of 1 to 16 pairs).
 _BASE = [(b, 128, 1024, 3) for b in (8, 16, 32, 56, 64, 128, 256, 512)]
-_SEQUENCE = sorted({key[:4] for _, cfg, (h, w) in smoke.SEQ_RUNS
-                    for key in smoke.sequence_launch_shapes(cfg, h, w)[0]} - set(_BASE))
+_SEQUENCE = sorted({key[:4] for _, cfg, (h, w) in problems.SEQ_RUNS
+                    for key in problems.sequence_launch_shapes(cfg, h, w)[0]} - set(_BASE))
 LAUNCHES = _BASE + [(2, 1024, 2048, 4), (2, 600, 3600, 4)] + _SEQUENCE
 
 

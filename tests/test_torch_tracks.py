@@ -1,12 +1,12 @@
 """Port parity: models/tracks (cross-pair track merging) against the JAX
 package on the CPU, on hand-built chains, seeded random match tables,
-tests/test_tracks._make_sequence_problem's recipe (chip_smoke.synth_tracks
+tests/test_tracks._make_sequence_problem's recipe (problems.synth_tracks
 in numpy) and real match tables from the port's run_two_view_batch.
 
 Tolerances: track_id, slot, has_next, num_tracks, obs_cam, obs_valid and
 lm_valid exact; obs_bearing within 2e-6; landmarks, where the root
 match's midpoint det > 1e-3, within max(1e-4, 1e-6 / det) of their norm
-(chip_smoke.problem_gaps). That is looser than 1e-4 for det < 1e-2
+(problems.problem_gaps). That is looser than 1e-4 for det < 1e-2
 because det = 1 - (b1 . R^T b2)^2 cancels: one float32 step of the dot
 moves det by ~1.2e-7 and the midpoint by that over det. The reference
 triangulates in float32, the port in float64 rounded once; measured on
@@ -19,10 +19,10 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-import chip_smoke as smoke
 from spherical_bundle_adjuster_tpu.models import multiview as jmv
 from spherical_bundle_adjuster_tpu.models import tracks as jtr
 from spherical_bundle_adjuster_tpu.utils import synthetic as jsyn
+from spherical_bundle_adjuster_tpu_torch import problems
 from spherical_bundle_adjuster_tpu_torch.models import multiview as tmv
 from spherical_bundle_adjuster_tpu_torch.models import tracks as ttr
 from spherical_bundle_adjuster_tpu_torch.models import twoview as ttv
@@ -61,11 +61,11 @@ def _both_builds(inputs, width, height):
     want = jtr.build_multiview_problem(*(jnp.asarray(a) for a in inputs), width, height,
                                        max_obs_per_track=6)
     want = tmv.problem_from_numpy([np.asarray(f) for f in want], "cpu")
-    return got, want, smoke.landmark_det(inputs, width, height)
+    return got, want, problems.landmark_det(inputs, width, height)
 
 
 def _assert_same_problem(got, want, det):
-    gaps = smoke.problem_gaps(got, want, det)
+    gaps = problems.problem_gaps(got, want, det)
     assert gaps["within"], gaps
     for a, b in zip(got, want):
         assert a.dtype == b.dtype and a.shape == b.shape
@@ -208,8 +208,8 @@ def test_sequence_recipe_builds_the_same_problem(n_cams, n_lm, seed, noise):
     """(d) _make_sequence_problem's recipe at (5 cameras, 24 landmarks) and
     (10, 80): the numpy recipe rebuilds the JAX test's problem, and the
     port's build of its inputs equals the JAX build."""
-    inputs, _ = smoke.synth_tracks(n_cams, n_lm, seed, noise)
-    got, want, det = _both_builds(inputs, smoke.TRACKS_W, smoke.TRACKS_H)
+    inputs, _ = problems.synth_tracks(n_cams, n_lm, seed, noise)
+    got, want, det = _both_builds(inputs, problems.TRACKS_W, problems.TRACKS_H)
     _assert_same_problem(got, want, det)
     ref, _, _, _ = jtests._make_sequence_problem(n_cams=n_cams, n_landmarks=n_lm, seed=seed,
                                                  pose_noise=noise)
@@ -232,10 +232,10 @@ def test_ba_on_merged_tracks_beats_the_noisy_poses():
     shows (the reference's own jitted and eager landmark steps differ by
     3e-4, PERF.md): here the two solves end 3.3% apart in scale, and
     their first costs 4% apart."""
-    inputs, gt = smoke.synth_tracks(10, 80, 1)
-    got, want, _ = _both_builds(inputs, smoke.TRACKS_W, smoke.TRACKS_H)
+    inputs, gt = problems.synth_tracks(10, 80, 1)
+    got, want, _ = _both_builds(inputs, problems.TRACKS_W, problems.TRACKS_H)
     solved, costs = tmv.solve_multiview(got, num_iters=25)
-    vals, fails = smoke.tracks_gates(costs.numpy(), solved.poses.numpy(), inputs[0], gt,
+    vals, fails = problems.tracks_gates(costs.numpy(), solved.poses.numpy(), inputs[0], gt,
                                      int(got.obs_valid.sum(-1).max()))
     assert not fails, vals
     jprob = jmv.MultiViewProblem(*(jnp.asarray(f.numpy()) for f in want))
@@ -255,7 +255,7 @@ def test_render_trajectory_stacks_render_erp_at():
     params = tuple(np.asarray(p, np.float32) for p in jsyn._texture_params(key))
     dists = np.asarray(jax.random.uniform(jax.random.fold_in(key, 7), (params[3].shape[0],),
                                           minval=2.0, maxval=6.0), np.float32)
-    poses = smoke.trajectory_poses(3)
+    poses = problems.trajectory_poses(3)
     got = tsyn.render_trajectory(params, dists, poses, 48, 96, "cpu")
     assert got.shape == (3, 48, 96, 3) and got.dtype == torch.uint8
     for k in range(3):
@@ -268,10 +268,10 @@ def test_render_trajectory_stacks_render_erp_at():
 def odometry_tables():
     """A 4-frame rendered trajectory at 96x192 through the port's
     run_two_view_batch on the CPU (compat), chained into poses."""
-    rng = np.random.default_rng(smoke.ODO_SEED)
+    rng = np.random.default_rng(problems.ODO_SEED)
     params = tsyn.texture_params_from_numpy(rng)
     dists = tsyn.disc_distances_from_numpy(rng)
-    frames = tsyn.render_trajectory(params, dists, smoke.trajectory_poses(4), 96, 192, "cpu")
+    frames = tsyn.render_trajectory(params, dists, problems.trajectory_poses(4), 96, 192, "cpu")
     cfg = PipelineConfig(surf=SurfConfig(max_keypoints=128, n_octaves=2),
                          match=MatchConfig(max_matches=256, ratio_thresh=0.6))
     out = ttv.run_two_view_batch(frames[:-1], frames[1:], torch.Generator().manual_seed(0), cfg)
@@ -286,7 +286,7 @@ def test_real_match_tables(odometry_tables):
     share a cell; every pair links to its predecessor; both packages
     build the same tracks and problem from the same tables."""
     inputs = odometry_tables
-    cells = smoke.shared_cells(*inputs[1:4])
+    cells = problems.shared_cells(*inputs[1:4])
     assert all(n > 0 for n in cells["same_cell"]), cells
     assert not any(cells["same_cell_not_bit_identical"]), cells
     arrays = [t.numpy() for t in inputs]
@@ -313,9 +313,9 @@ def test_build_makes_no_per_pair_loop():
 
     calls = []
     for n_pairs in (5, 65):
-        inputs = [torch.from_numpy(np.asarray(a)) for a in smoke.synth_tracks(n_pairs + 1, 40, 2)[0]]
+        inputs = [torch.from_numpy(np.asarray(a)) for a in problems.synth_tracks(n_pairs + 1, 40, 2)[0]]
         with Count() as c:
-            ttr.build_multiview_problem(*inputs, smoke.TRACKS_W, smoke.TRACKS_H)
+            ttr.build_multiview_problem(*inputs, problems.TRACKS_W, problems.TRACKS_H)
         calls.append(c.n)
     rounds = 4  # ceil(log2(64)) - ceil(log2(4)) pointer-doubling rounds
     assert calls[1] - calls[0] == rounds * 3, calls  # two gathers and an add a round
